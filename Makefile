@@ -6,8 +6,9 @@ CXXFLAGS ?= -O3 -std=c++17 -fPIC -Wall -Wextra
 NATIVE_DIR := native
 NATIVE_BUILD := $(NATIVE_DIR)/build
 NATIVE_LIB := $(NATIVE_BUILD)/liblbmio.so
+CHECK_DIR ?= check_out
 
-.PHONY: all native test check check-all perfcheck verify clean
+.PHONY: all native test check smoke clean
 
 all: native
 
@@ -18,32 +19,24 @@ $(NATIVE_LIB): $(NATIVE_DIR)/lbmio.cpp
 	$(CXX) $(CXXFLAGS) -shared -o $@ $<
 
 test:
-	python -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -x -q
 
-# Run the 128x128 scene end-to-end and validate against the reference golden
-# data at 1% tolerance (the reference's `make check` contract).
+# Run the 1024x1024 reference scene end-to-end and validate against its
+# golden data at 1% tolerance (the reference's `make check` contract).
 check: native
-	python -m lbm_tpu run /root/reference/dataSet/input_128x128.params \
-	    /root/reference/dataSet/obstacles_128x128.dat
-	python -m lbm_tpu.tools.check \
-	    --ref-av-vels-file /root/reference/check/128x128.av_vels.dat \
-	    --ref-final-state-file /root/reference/check/128x128.final_state.dat \
-	    --av-vels-file av_vels.dat --final-state-file final_state.dat
+	python -m lbm_tpu run golden/input_1024x1024.params \
+	    golden/obstacles_1024x1024.dat --out-dir $(CHECK_DIR)
+	python -m lbm_tpu check \
+	    --ref-av-vels-file golden/1024x1024.av_vels.dat.gz \
+	    --ref-final-state-file golden/1024x1024.final_state.dat.gz \
+	    --av-vels-file $(CHECK_DIR)/av_vels.dat \
+	    --final-state-file $(CHECK_DIR)/final_state.dat
 
-# Full validation: run every reference scene end-to-end on the attached
-# accelerator and check against all golden data the mirror provides.
-check-all: native
-	bash scripts/check_all.sh
-
-# Perf regression gate: one quick bench per kernel path, conservative floors
-perfcheck:
-	python -m lbm_tpu.tools.perfcheck
-
-# On-device correctness artifact: kernel-path bitwise probes + a golden
-# prefix run on the attached accelerator, recorded in VERIFY_TPU.json
-# (also run automatically by bench.py each round).
-verify:
-	python -m lbm_tpu.tools.verify_device
+# The GPU smoke run: main path f32 + i16 against the goldens, step vs
+# oracle (one card).  `python chip_smoke.py --devices 4` runs the sharded
+# phase on four cards.
+smoke:
+	python chip_smoke.py
 
 clean:
-	rm -rf $(NATIVE_BUILD)
+	rm -rf $(NATIVE_BUILD) $(CHECK_DIR)

@@ -1,120 +1,23 @@
 """Execution-plan introspection: what would `run` actually execute?
 
 ``lbm_tpu run ... --plan`` prints this and exits.  Every line is derived
-from the SAME selection functions and decision order the driver uses
-(variant auto-policy, backend/storage coercion, kernel supports()/plans,
-temporal depth heuristic, checkpoint/segment layout), so the description
-cannot drift from the real execution path.
+from the SAME selection functions the driver uses (variant auto-policy,
+``modes.ca_supported``, staleness defaults, checkpoint/segment layout), so
+the description cannot drift from the real execution path.
 """
 
 from __future__ import annotations
 
 from lbm_tpu.io.scene import Scene
 
-
-def _single_device_lines(out, params, config):
-    """Mirror modes.build_single_program's dispatch exactly."""
-    from lbm_tpu.ops import fused_pallas, resident_pallas, temporal_pallas
-    from lbm_tpu.parallel import modes
-
-    nx = params.nx
-    pad = modes.lane_pad_cols(nx) if nx % 128 else 0
-    p_eff = params.replace(nx=nx + pad) if pad else params
-    clone = nx if pad else None
-    if pad:
-        if not fused_pallas.supports(p_eff):
-            out("kernel: jnp fallback (grid unmappable even lane-padded)"
-                + ("; NOTE: i16 storage will fail here"
-                   if config.storage != "f32" else ""))
-            return
-        out(f"lane padding: {nx} -> {p_eff.nx} columns "
-            "(blocked pad + live clone columns)")
-    elif config.storage == "f32" and resident_pallas.supports(params):
-        # Unpadded grids that fit on-chip: the resident whole-run kernel.
-        out("kernel: VMEM-resident multi-step "
-            f"(whole state on-chip, {resident_pallas.DEFAULT_CHUNK} "
-            "steps per launch)")
-        return
-    elif (
-        config.storage == "f32"
-        and config.temporal_k is None
-        and resident_pallas.auto_limit_mb(params) is not None
-    ):
-        mb, inplace = resident_pallas.auto_raised_plan(params)
-        kind = (
-            "in-place single-buffer (block "
-            f"{resident_pallas._pick_inplace_block_rows(params.ny, params.nx, mb, 1 if resident_pallas._inplace_mask_i8(params.ny, params.nx, mb) else 4)}"
-            " rows, 1x state)"
-            if inplace
-            else "monolithic"
-            if resident_pallas._fits(params.ny, params.nx, params.ny, mb)
-            else "block-tiled"
-        )
-        out(f"kernel: VMEM-resident multi-step, {kind} at a raised "
-            f"{mb} MiB scoped-VMEM limit (whole state on-chip, "
-            f"{resident_pallas.DEFAULT_CHUNK} steps per launch); "
-            "--temporal-k opts back into the streaming sweeps")
-        return
-    elif not fused_pallas.supports(params):
-        if config.storage != "f32":
-            out("NOTE: this run will FAIL — i16 storage requires the "
-                "pallas block kernel, which cannot map this grid")
-        else:
-            out("kernel: jnp fallback (grid unmappable by the Pallas "
-                "kernels)")
-        return
-    elif (
-        config.storage == "i16"
-        and config.temporal_k is None
-        and fused_pallas._fold_factor(params.nx) == 1
-        and resident_pallas.auto_raised_plan(params, "i16") is not None
-    ):
-        # Mirror modes._i16_single_program's in-place resident routing.
-        mb, _ = resident_pallas.auto_raised_plan(params, "i16")
-        b = resident_pallas._pick_inplace_block_rows(
-            params.ny, params.nx, mb,
-            1 if resident_pallas._inplace_mask_i8(
-                params.ny, params.nx, mb, state_bytes=2) else 4,
-            state_bytes=2,
-        )
-        out(f"kernel: VMEM-resident multi-step, in-place single-buffer "
-            f"int16 (block {b} rows, 1x int16 state) at a raised {mb} MiB "
-            f"scoped-VMEM limit (whole quantized state on-chip, "
-            f"{resident_pallas.DEFAULT_CHUNK} steps per launch); "
-            "--temporal-k opts back into the streaming sweeps")
-        return
-
-    K = (
-        config.temporal_k
-        if config.temporal_k is not None
-        else temporal_pallas.pick_k(p_eff, config.storage)
-    )
-    impl = (
-        modes.temporal_impl_choice(p_eff, K, clone, config.storage)
-        if K >= 2
-        else None
-    )
-    if impl == "skew":
-        from lbm_tpu.ops import skew_pallas
-
-        F, rows_v, nx_v, B = skew_pallas._plan(
-            p_eff.ny, p_eff.nx, K, clone, config.storage
-        )
-        out(f"kernel: skewed temporal pair — 2K={2 * K} steps per "
-            f"forward/reverse sweep pair, block {B} view rows, fold {F} "
-            f"(compute at {rows_v}x{nx_v}), zero recompute")
-    elif impl == "trapezoid":
-        F, rows_v, nx_v, G, B = temporal_pallas._plan(
-            p_eff.ny, p_eff.nx, K, clone, config.storage
-        )
-        out(f"kernel: temporal sweep — K={K} steps per HBM pass, "
-            f"block {B} view rows, fold {F} (compute at {rows_v}x{nx_v}), "
-            f"ghost group {G}")
-    else:
-        F, rows_v, nx_v, B = fused_pallas._plan(p_eff.ny, p_eff.nx, clone)
-        out(f"kernel: single-step block — block {B} view rows, fold {F} "
-            f"(compute at {rows_v}x{nx_v}); temporal blocking off "
-            "(cached regime, unmappable depth, or --temporal-k 1)")
+_BACKEND_DESC = {
+    "jnp": "XLA-fused step (ops/fused_jnp.py)",
+    "pallas": "Triton block kernel (ops/fused_pallas.py)",
+}
+_STORAGE_DESC = {
+    "f32": "",
+    "i16": " with int16 state, quantized after every step (ops/quant.py)",
+}
 
 
 def describe_plan(scene: Scene, config) -> str:
@@ -140,18 +43,9 @@ def describe_plan(scene: Scene, config) -> str:
     if variant == "serial":
         out("path: host NumPy oracle (4-pass)")
     elif variant in ("jnp", "pallas"):
-        # Mirror build_program's backend/storage coercion.
         backend = config.backend or variant
-        if config.storage != "f32":
-            if backend == "jnp" and (config.variant != "auto" or config.backend):
-                out("NOTE: this run will FAIL — i16 storage requires the "
-                    "pallas backend (drop --variant jnp / --backend jnp)")
-                return "\n".join(lines)
-            backend = "pallas"
-        if backend == "jnp":
-            out("path: XLA-fused jnp step, lax.scan on device")
-        else:
-            _single_device_lines(out, params, config)
+        out("path: " + _BACKEND_DESC[backend] + _STORAGE_DESC[config.storage]
+            + ", lax.scan on device")
     else:  # sharded
         n_dev = config.num_devices or jax.device_count()
         nloc = -(-ny // n_dev)
@@ -160,10 +54,6 @@ def describe_plan(scene: Scene, config) -> str:
         stal = (
             config.staleness
             if config.staleness is not None
-            else modes.ca_default_staleness(
-                params, scene.obstacles, n_dev, config.storage
-            )
-            if variant == "ca"
             else modes.STALENESS_DEFAULTS.get(variant, 1)
         )
         K_ca = modes.ca_depth(stal)
@@ -186,15 +76,9 @@ def describe_plan(scene: Scene, config) -> str:
                 f"{age:g}, interior exact; stale-row exposure "
                 f"{frac:.1%} -> expected av_vels deviation "
                 f"{'<0.2%' if frac <= 0.016 else '<1%' if frac <= 0.05 else '>1% (driver warns)'}")
-        backend = config.backend or (
-            "pallas"
-            if modes.sharded_pallas_supported(ny, nx, n_dev)
-            else "jnp"
-        )
-        out(f"per-shard backend: {backend}")
-        if config.storage != "f32" and backend != "pallas":
-            out("NOTE: this run will FAIL — i16 storage requires the pallas "
-                "slab kernel on this layout")
+        backend = config.backend or modes.auto_backend(jax.default_backend())
+        out("per-shard step: " + _BACKEND_DESC[backend]
+            + _STORAGE_DESC[config.storage])
         if variant == "ca":
             # The SAME gate the build and the auto policy use
             # (modes.ca_supported) — no drift.
@@ -202,66 +86,20 @@ def describe_plan(scene: Scene, config) -> str:
             if modes.open_seam_pad(scene.obstacles, n_dev):
                 out("NOTE: this run will FAIL — ca does not support "
                     "open-seam row padding (ny not divisible by the mesh)")
-            elif backend != "pallas" or not modes.ca_supported(
-                params, scene.obstacles, n_dev, stal, config.storage
-            ):
-                out(f"NOTE: this run will FAIL — ca requires a K-sweep "
-                    f"engine (resident extended-slab or temporal slab "
-                    f"sweep), neither of which can map "
-                    f"{(ny + pad_rows) // n_dev}-row shards at depth "
-                    f"K={K_ca}")
+            elif not modes.ca_supported(scene.obstacles, n_dev, stal):
+                out(f"NOTE: this run will FAIL — ca exchanges {K_ca} rows "
+                    f"each way but shards have "
+                    f"{(ny + pad_rows) // n_dev} rows")
             else:
-                # Mirror build_sharded_program's engine choice exactly
-                # (modes.ca_engine_choice: resident in its narrow-shard
-                # win box, in-place blocked sweep elsewhere, slab as the
-                # coverage fallback, LBM_CA_ENGINE force).
-                nloc_pad = (ny + pad_rows) // n_dev
-                pad_cols = modes.lane_pad_cols(nx) if nx % 128 else 0
-                eng = modes.ca_engine_choice(
-                    params, nloc_pad, nx + pad_cols, K_ca,
-                    pad_cols=pad_cols, storage=config.storage,
-                    ny_global=ny + pad_rows,
-                )
-                if eng == "inplace":
-                    from lbm_tpu.ops import resident_pallas
-
-                    parts = resident_pallas.ca_inplace_parts(
-                        nloc_pad, nx + pad_cols, K_ca, ny + pad_rows,
-                        config.storage,
-                    )
-                    sub = nloc_pad // (parts or 1)
-                    split = (
-                        f" as {parts} sub-sweeps of {sub} rows "
-                        "(K-deep local ghosts, bitwise)"
-                        if parts and parts > 1 else ""
-                    )
-                    out(f"ca engine: in-place blocked resident sweep "
-                        f"({sub}+2x{K_ca} rows on-chip, single buffer"
-                        f"{split})")
-                elif eng == "resident":
-                    out(f"ca engine: VMEM-resident extended-slab sweep "
-                        f"({nloc_pad}+2x{K_ca} rows on-chip per sweep)")
-                else:
-                    out("ca engine: streaming temporal slab sweep")
-        if variant in ("sync", "overlap", "async", "async-k", "chunked", "ca"):
-            out("evidence: discipline ordering from a 1-core CPU op-count "
-                "proxy (scripts/exp_disciplines.py; multi-chip hardware "
-                "unavailable) + single-chip per-shard kernel rates "
-                "(BENCHMARKS.md)")
+                out(f"ca: {K_ca} steps per exchange on a slab shrinking "
+                    f"from {(ny + pad_rows) // n_dev}+2x{K_ca} rows")
         spc = K_ca if variant == "ca" else stal if variant == "chunked" else 1
         # Mirror the driver's debug handling of multi-step programs
         # (models/driver.py run_simulation + _make_scan).
         if config.debug and spc > 1 and variant == "ca":
-            if config.storage == "f32":
-                out("debug: per-step observables via the "
-                    "bitwise-identical sync schedule (one exchange per "
-                    "step)")
-                spc = 1
-            else:
-                out("NOTE: this run will FAIL — --debug with ca "
-                    "requires f32 storage (i16 quantizes once per "
-                    "sweep; the per-step decomposition would trace a "
-                    "different trajectory)")
+            out("debug: per-step observables via the bitwise-identical "
+                "sync schedule (one exchange per step)")
+            spc = 1
 
     tail = num_steps % spc if spc > 1 else 0
     if tail and config.frame_interval is not None:
@@ -285,14 +123,6 @@ def describe_plan(scene: Scene, config) -> str:
     ):
         out(f"NOTE: this run will FAIL — frame capture with chunked requires "
             f"--frame-interval to be a multiple of the {spc}-step chunk")
-    if (
-        config.frame_interval is not None
-        and variant == "ca"
-        and config.storage != "f32"
-    ):
-        out("NOTE: this run will FAIL — --frame-interval with ca requires "
-            "f32 storage (i16 quantizes once per sweep; the capture scan's "
-            "per-step sync steps would trace a different trajectory)")
     if tail:
         out(f"tail: {variant} advances {spc} steps per exchange; the last "
             f"{tail} step(s) run as an exact sync tail (bitwise continuation)")

@@ -1,7 +1,7 @@
 """Solver-variant registry.
 
 The reference is a ladder of six progressively more asynchronous variants of
-one solver (README.md:30-75); this table is the TPU-native counterpart.  Each
+one solver (README.md:30-75); this table is the JAX counterpart.  Each
 variant names a step-construction strategy; the driver (models/driver.py)
 wires it into the on-device scan loop.
 
@@ -9,7 +9,7 @@ wires it into the on-device scan loop.
 |------------|---------------------------------------|------------------------------------|
 | serial     | SerialCode (4-pass, ground truth)     | host NumPy oracle                  |
 | jnp        | OpenMP fused kernel (fusion_more)     | single device, XLA-fused jnp       |
-| pallas     | OpenMP fused kernel, hand-tuned       | single device, Pallas TPU kernel   |
+| pallas     | OpenMP fused kernel, hand-tuned       | single device, Triton block kernel |
 | sync       | MPI blocking Sendrecv halo exchange   | row-sharded mesh, barrier ppermute |
 | overlap    | MPI_Isend/Irecv + Waitall overlap     | row-sharded, dataflow ppermute     |
 | async      | MPI_Testall stale halos (headline)    | row-sharded, staleness-1 halos     |
@@ -46,7 +46,7 @@ VARIANTS: dict[str, VariantSpec] = {
         "pallas",
         "OpenMP/d2q9-bgk.c (fusion_more), hand-tuned",
         False,
-        "Single-device fused Pallas TPU kernel.",
+        "Single-device fused block kernel (Pallas through Triton, GPU).",
     ),
     "sync": VariantSpec(
         "sync",
@@ -85,7 +85,7 @@ VARIANTS: dict[str, VariantSpec] = {
         "beyond the reference (communication-avoiding stencil schedule)",
         True,
         "Row-sharded; one K-deep raw halo exchange per K steps, boundary "
-        "levels recomputed locally in the temporal slab sweep — results "
+        "levels recomputed locally on a shrinking slab — results "
         "bitwise-equal to sync with collectives amortized K-fold.",
     ),
 }

@@ -15,9 +15,9 @@ Two forms are provided:
 - :func:`fused_step_slab` — step over a row slab with one ghost row on each
   side, the building block for row-sharded multi-chip execution (ghost rows
   play the role of the reference's MPI halo rows, MPI/d2q9-bgk.c:205-248)
-  and for the Pallas kernel's per-block tile compute.
+  and the per-level step of the communication-avoiding (ca) mode.
 
-All arithmetic is float32; the cell update uses the shared VPU-economical
+All arithmetic is float32; the cell update uses the shared
 math of ops/stencil_math.py (paired equilibria, moment-reused av_velocity),
 validated to track the golden data far inside the 1% tolerance over full
 runs.
@@ -106,8 +106,8 @@ def fused_step_single(
 ) -> StepOutput:
     """One full timestep on a single device (periodic full grid).
 
-    Uses the shared VPU-economical math (ops/stencil_math.py) so this path is
-    bitwise-identical to the Pallas kernel.
+    Uses the shared cell math (ops/stencil_math.py), as does the block
+    kernel in ops/fused_pallas.py.
     """
     from lbm_tpu.ops import stencil_math
 
@@ -127,7 +127,9 @@ def fused_step_slab(
     slab: jax.Array,
     obstacles_slab: jax.Array,
     params: LBMParams,
-    row_offset: int,
+    row_offset,
+    ny_global: int | None = None,
+    tot_rows: tuple[int, int] | None = None,
 ) -> StepOutput:
     """One timestep over a ghosted row slab (the sharded building block).
 
@@ -135,7 +137,13 @@ def fused_step_slab(
       slab: (9, n+2, nx) distributions including ghost rows, *pre-accel*.
       obstacles_slab: (n+2, nx) bool obstacle mask including ghost rows.
       params: simulation parameters (static).
-      row_offset: global row index of slab row 1 (the first owned row).
+      row_offset: global row index of slab row 1 (the first owned row);
+        may be traced (a shard's axis index times its row count).
+      ny_global: rows of the global (periodic) grid.  When given, slab row
+        indices wrap modulo it, so a slab that reaches past either edge of
+        the grid (the deep halos of the ca mode) still finds the driven row.
+      tot_rows: ``(lo, hi)`` output rows whose |u| enters ``tot_u``
+        (default: all n) — the ca mode counts only the rows a shard owns.
 
     The driven-row injection is applied to every slab row (ghosts included)
     whose *global* index is ``ny-2``, which reproduces exactly what the
@@ -148,6 +156,8 @@ def fused_step_slab(
     w1, w2 = lattice.accel_weights(params.density, params.accel)
     n = slab.shape[1] - 2
     global_rows = row_offset - 1 + jnp.arange(n + 2)
+    if ny_global is not None:
+        global_rows = global_rows % ny_global
     accel_rows = global_rows == params.accel_row
     fluid_slab = ~obstacles_slab
     # apply_accel_row broadcasts over the row dimension; restricting the
@@ -155,11 +165,16 @@ def fused_step_slab(
     slab = apply_accel_row(slab, fluid_slab & accel_rows[:, None], w1, w2)
     streamed = stream_slab(slab)
     obstacles_own = obstacles_slab[1 : 1 + n]
-    out_planes, tot_u = stencil_math.collide_and_av(
-        [streamed[k] for k in range(lattice.NSPEEDS)],
-        obstacles_own,
-        _f32(params.omega),
+    rho, u_x, u_y = stencil_math.moments(
+        [streamed[k] for k in range(lattice.NSPEEDS)]
     )
+    u_sq = u_x * u_x + u_y * u_y
+    out_planes = stencil_math.collide(
+        [streamed[k] for k in range(lattice.NSPEEDS)],
+        obstacles_own, _f32(params.omega), rho, u_x, u_y, u_sq,
+    )
+    lo, hi = tot_rows if tot_rows is not None else (0, n)
+    tot_u = stencil_math.speed_sum(u_sq[lo:hi], ~obstacles_own[lo:hi])
     return StepOutput(jnp.stack(out_planes), tot_u)
 
 

@@ -1,629 +1,238 @@
-"""Fused collide-stream Pallas TPU kernel.
+"""Fused collide-stream block kernel, Pallas through Triton.
 
-The performance core of the framework: one kernel performs the driven-row
-injection, 9-direction pull streaming, bounce-back, BGK collision and the
-per-step |u| reduction in a single read+write sweep of the distribution
-planes — the hand-tuned counterpart of the reference's fused ``fusion_more``
-kernels (OpenMP/d2q9-bgk.c:260-498, MPI/d2q9-bgk.c:333-535), designed for the
-TPU memory hierarchy instead of cache lines:
+One kernel performs the driven-row injection, 9-direction pull streaming,
+bounce-back, BGK collision and the per-step |u| partial in a single pass
+over the distribution planes — the hand-written counterpart of the
+reference's fused ``fusion_more`` kernels (OpenMP/d2q9-bgk.c:260-498,
+MPI/d2q9-bgk.c:333-535) and of the XLA-fused step in ops/fused_jnp.py,
+whose arithmetic (ops/stencil_math.py) it reuses.
 
-- the grid is processed in row blocks; each block's 9 planes arrive in VMEM
-  through the standard auto-pipelined BlockSpec path (double-buffered DMA
-  managed by the Pallas pipeline);
-- each block's *upper* ghost row rides the pipeline as an aligned (9, 8, nx)
-  block of f fetched through a modular index map (the group starting at
-  (i+1)*B); the *lower* ghost is free — grid steps run sequentially, so a
-  revisited VMEM scratch carries block i-1's last body row into block i.
-  Shard-edge blocks select externally supplied halo rows in-kernel.
-  Assembling ghosts outside the kernel instead costs a full extra HBM sweep
-  of f — this design choice alone is worth 2x (see ARCHITECTURE.md §3);
-- streaming is a static row shift against the ghosted block plus a lane
-  rotation in x — no gathers, no dynamic shapes;
-- collision is pure VPU arithmetic, ordered exactly like the jnp/NumPy
-  reference implementations so results match bitwise;
-- each block writes one (9, B, nx) output tile and accumulates its |u|
-  partial into an SMEM cell, so the whole step costs one HBM read + one HBM
-  write of f (plus the small mask/ghost streams) — the bandwidth optimum.
+Design (one program per output tile):
 
-The kernel doubles as the per-shard compute of the distributed modes: ghost
-rows and a dynamic global-row offset (for locating the driven row) arrive as
-arguments, mirroring how the reference's MPI kernels take halo rows and rank
-offsets (MPI/d2q9-bgk.c:333-366).
+- the grid is cut into 2-D power-of-two tiles ``(by, bx)``; tail tiles
+  clamp their indices, so an out-of-range lane recomputes (and rewrites)
+  its edge cell and is left out of the |u| partial;
+- each program loads its 9 neighbour-shifted tiles straight from global
+  memory (the overlap between neighbouring tiles is served by L1/L2), with
+  the periodic x wrap — and the y wrap of the full-grid form — folded into
+  the load indices.  Nothing is carried between programs;
+- the driven-row injection is applied to loaded values whose source row is
+  the driven row, from three row vectors per column shift (planes 3, 6, 7
+  and the obstacle flag of that row);
+- the collision runs in registers; each program writes its 9 output tiles
+  and ONE |u| partial, which XLA sums in a fixed order (no atomics, so
+  results are deterministic).
+
+One kernel serves both forms — the periodic full grid and the ghosted row
+slab of the sharded modes (whose global row offset arrives at run time) —
+and both f32 and int16 state (ops/quant.py codec applied per plane on load
+and store).
 """
 
 from __future__ import annotations
 
 import functools
-import math
-import os
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from lbm_tpu.core import lattice
-from lbm_tpu.ops import quant, stencil_math, vmem
+from lbm_tpu.ops import quant, stencil_math
 from lbm_tpu.params import LBMParams
 
 F32 = jnp.float32
 NS = lattice.NSPEEDS
 
-# Lane (x) dimension must be a multiple of the TPU lane width.
-LANE = 128
-# Wide grids are FOLDED to a narrower lane width: a row-major (ny, F*W) grid
-# is bit-identical in memory to (ny*F, W) — no ghost columns, no data
-# movement; only the x-wrap lane must be borrowed from the fold-group
-# neighbor row (see _fold_roll_x).  The default width is 1024 lanes (56
-# ps/cell vs 240+ measured at 2048 lanes for the single-step block kernel),
-# but the fold FACTOR matters more than the lane width once it exceeds 4:
-# every block pays 2F fold-ghost rows, and at F=8 the temporal kernels'
-# per-level carry (2F rows) swallows the whole VMEM window (the 8192² fold-8
-# collapse, BENCHMARKS.md).  Measured at 8192², same session: fold-8 @1024
-# lanes 4,183 MLUPS (single-step; temporal collapses) vs fold-4 @2048 lanes
-# 14,733 (skew K=4) vs fold-2 @4096 lanes 3,629 — so the auto policy picks
-# the NARROWEST width in _FOLD_WIDTHS whose factor is <= 4, falling back to
-# the width minimizing the factor.  LBM_FOLD_W pins an explicit width.
-FOLD_W = 1024
-_FOLD_WIDTHS = (1024, 2048)
-# Scoped-VMEM budget for the whole pipelined kernel (bytes), with margin
-# under the 16 MiB hardware limit.
-_VMEM_BUDGET = int(15.2 * 1024 * 1024)
+# (rows, columns, warps) of one program's tile: the best or within 1% of
+# the best of ten shapes at 1024^2 and 8192^2, f32 and i16, on an H100
+# (PERF.md).
+DEFAULT_BLOCK = (2, 256, 4)
+
+# Driven-row injection per speed: (weight index, sign); weight 1 = w1,
+# 2 = w2 (SerialCode/d2q9-bgk.c:216-246).  Speeds 0, 2, 4 are untouched.
+_ACCEL = {1: (1, 1.0), 3: (1, -1.0), 5: (2, 1.0), 6: (2, -1.0),
+          7: (2, -1.0), 8: (2, 1.0)}
 
 
-def _fold_factor(nx: int) -> int:
-    env = os.environ.get("LBM_FOLD_W")
-    if env:
-        try:
-            w = int(env)
-        except ValueError:
-            raise ValueError(
-                f"LBM_FOLD_W={env!r} is not an integer lane width"
-            ) from None
-        if nx > w and nx % w == 0:
-            return nx // w
-        if nx > w:
-            # An inapplicable pin silently running UNFOLDED would quietly
-            # benchmark the degraded wide-lane layout (measured ~4x at
-            # 8192 lanes) — say so once instead.
-            import warnings
-
-            warnings.warn(
-                f"LBM_FOLD_W={w} does not divide nx={nx}; running unfolded "
-                f"at {nx} lanes (expect heavily degraded Mosaic rates past "
-                "1024 lanes)",
-                stacklevel=3,
-            )
-        return 1
-    best = 1
-    for w in _FOLD_WIDTHS:
-        if nx > w and nx % w == 0:
-            f = nx // w
-            if f <= 4:
-                return f
-            if best == 1 or f < best:
-                best = f
-    return best
+def _wrap(idx, n: int):
+    """Indices in [-1, n] folded periodically into [0, n)."""
+    idx = jnp.where(idx < 0, idx + n, idx)
+    return jnp.where(idx >= n, idx - n, idx)
 
 
-def _obst_block_rows(b: int, fold: int = 1) -> int:
-    """Rows of an obstacle block: body (b) + fold lo/hi ghost rows each,
-    padded to the sublane multiple so the body slice [0:b] stays
-    tile-aligned (the aligned layout is worth ~1.3x kernel time vs slicing
-    a ghosted block)."""
-    return ((b + 2 * fold + 7) // 8) * 8
-
-
-def _kernel_footprint(b: int, nx: int, fold: int = 1) -> int:
-    """Estimated scoped-VMEM bytes at (view) block height ``b``.
-
-    Calibrated against observed Mosaic stack allocations on v5e: ~6 live
-    (NS, b, nx) buffers (double-buffered in/out + temporaries), the ghost
-    group buffers, and the obstacle block.  Matches the measured pass/fail
-    boundary at nx = 1024/2048/4096.
-    """
-    g = max(8, fold)
-    return 4 * (
-        6 * NS * b * nx
-        + 2 * NS * g * nx
-        + 2 * NS * fold * nx
-        + 2 * _obst_block_rows(b, fold) * nx
-    )
-
-
-def _plan(n_rows: int, nx: int, clone_nx: int | None = None):
-    """Choose (fold, rows_view, nx_view, block_rows) for a shard; raises
-    ValueError when no layout fits VMEM."""
-    fold = 1 if clone_nx is not None else _fold_factor(nx)
-    rows_v, nx_v = n_rows * fold, nx // fold
-    return fold, rows_v, nx_v, pick_block_rows(rows_v, nx_v, fold)
-
-
-def supports(params: LBMParams) -> bool:
-    """The kernel handles lane-aligned grids for which a block fits VMEM."""
-    if params.nx % LANE != 0 or params.ny < 8:
-        return False
-    try:
-        _plan(params.ny, params.nx)
-    except ValueError:
-        return False
-    return True
-
-
-def pick_block_rows(n_rows: int, nx: int, fold: int = 1) -> int:
-    """Largest divisor of n_rows whose block fits the VMEM budget.
-
-    Blocks must stay sublane-aligned and fold-group-aligned (multiple of
-    lcm(8, fold) — every piece handed to a lane rotation must START at a
-    fold-group boundary or _group_roll's iota%F phase is wrong; for
-    power-of-2 folds this is the familiar max(8, fold)) unless one block
-    covers the whole shard (which starts at view row 0).
-    """
-    align = math.lcm(8, fold)
-    best = None
-    for b in range(1, n_rows + 1):
-        if n_rows % b:
-            continue
-        if b % align and b != n_rows:
-            continue
-        if _kernel_footprint(b, nx, fold) <= vmem.scale(_VMEM_BUDGET):
-            best = b
-        else:
-            break
-    if best is None:
-        raise ValueError(
-            f"no sublane-aligned row block of a {n_rows}x{nx} shard fits the "
-            f"{_VMEM_BUDGET >> 20} MiB VMEM budget; the grid is too wide for "
-            "the block kernel — use the jnp backend"
-        )
-    return best
-
-
-def _fold_roll_x(rows: jax.Array, shift: int, fold: int) -> jax.Array:
-    """Periodic x lane shift on a folded view (static shift).
-
-    In the folded layout an original row occupies ``fold`` consecutive view
-    rows; the lane wrapping out of view row (r, s) re-enters at view row
-    (r, s -/+ 1 mod fold) — so the borrowed edge lane is the fold-group-
-    rolled edge column.  At fold == 1 this degenerates to the plain
-    periodic lane rotation.
-    """
-    if shift == 0:
-        return rows
-    F = fold
-    if shift == 1:
-        edge = rows[:, -1:]
-        if F > 1:
-            edge = _group_roll(edge, F, +1)
-        return jnp.concatenate([edge, rows[:, :-1]], axis=1)
-    if shift == -1:
-        edge = rows[:, :1]
-        if F > 1:
-            edge = _group_roll(edge, F, -1)
-        return jnp.concatenate([rows[:, 1:], edge], axis=1)
-    raise ValueError(shift)
-
-
-def _group_roll(col: jax.Array, F: int, direction: int) -> jax.Array:
-    """Intra-group sublane roll of a (B, 1) column (groups of F rows).
-
-    Expressed as a global sublane roll with a masked fix at group
-    boundaries — Mosaic cannot shape-cast (B//F, F) <-> (B, 1), and both
-    rolls are cheap concats on a single-lane column.
-    """
-    n = col.shape[0]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0) % F
-    if direction == +1:
-        rolled = jnp.concatenate([col[-1:], col[:-1]], axis=0)
-        wrap = jnp.concatenate([col[F - 1 :], col[: F - 1]], axis=0)
-        return jnp.where(sub == 0, wrap, rolled)
-    rolled = jnp.concatenate([col[1:], col[:1]], axis=0)
-    wrap = jnp.concatenate([col[-(F - 1) :], col[: -(F - 1)]], axis=0)
-    return jnp.where(sub == F - 1, wrap, rolled)
-
-
-# Backwards-compatible alias (fold == 1).
-def _roll_x(x: jax.Array, shift: int) -> jax.Array:
-    return _fold_roll_x(x, shift, 1)
-
-
-def refresh_clone_planes(planes: list, clone_nx: int | None) -> list:
-    """Lane padding: overwrite the two wrap-image clone columns of each
-    (R, nx_pad) plane with their source columns (col 0 and col clone_nx-1).
-    Identity when clone_nx is None.  Used by the single-step kernel's output
-    write and at every level of the temporal sweep."""
-    if clone_nx is None:
-        return planes
-    rows, nxt = planes[0].shape
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (rows, nxt), 1)
-    out = []
-    for p in planes:
-        p = jnp.where(lanes == clone_nx, p[:, 0:1], p)
-        p = jnp.where(lanes == nxt - 1, p[:, clone_nx - 1 : clone_nx], p)
-        out.append(p)
-    return out
-
-
-def _step_kernel(
-    row_off_ref,  # (1, 1) int32, SMEM: global row index of local row 0
-    f_ref,  # (9, B, nx) VMEM: this block's body rows (auto-pipelined)
-    ghi8_ref,  # (9, 8, nx) VMEM: the 8-row group starting at this block's
-    #            upper ghost row (garbage wrap rows at i == nb-1)
-    lo_ref,  # (9, 1, nx) VMEM: external halo below the shard (used at i == 0)
-    hi_ref,  # (9, 1, nx) VMEM: external halo above the shard (i == nb-1)
-    obst_ref,  # (1, P, nx) VMEM: aligned obstacle block — rows [0,B) body,
-    # row B = lo ghost, row B+1 = hi ghost, rest sublane padding.  The
-    # aligned layout keeps every (B, nx) mask read tile-aligned; slicing a
-    # ghosted (B+2, nx) block instead costs ~1.3x total kernel time in
-    # Mosaic relayouts (measured 76 -> 59 us/step at 1024^2).
-    out_ref,  # (9, B, nx) VMEM
-    sum_ref,  # (1, 1) f32, SMEM: |u| accumulator across blocks
-    prev_ref,  # (9, 1, nx) VMEM scratch: previous block's last body row —
-    # grid steps run sequentially, so block i's lower ghost is simply what
-    # block i-1 left here (no HBM fetch at all for lower ghosts)
-    *,
-    block_rows: int,
-    omega: float,
-    accel_row: int,
-    w1a: float,
-    w2a: float,
-    clone_nx: int | None = None,
-    fold: int = 1,
-    storage: str = "f32",
-    density: float = 0.0,
+def _kernel(
+    g0_ref, f_ref, obst_ref, out_ref, part_ref, *,
+    n_out: int, n_src: int, nx: int, ny_global: int, wrap_y: bool,
+    accel_row: int, w1, w2, omega, density: float, storage: str,
+    by: int, bx: int, gx: int, tot_rows: tuple[int, int],
 ):
     i = pl.program_id(0)
-    nb = pl.num_programs(0)
-    B = block_rows
-    F = fold
-    start = pl.multiple_of(i * B, B)
-    row_off = row_off_ref[0, 0]
+    j = pl.program_id(1)
+    rows = i * by + lax.iota(jnp.int32, by)
+    cols = j * bx + lax.iota(jnp.int32, bx)
+    # Cells that enter the |u| partial: in the grid, and in tot_rows.
+    counted = (rows >= tot_rows[0]) & (rows < tot_rows[1])
+    valid = counted[:, None] & (cols < nx)[None, :]
+    rows = jnp.minimum(rows, n_out - 1)
+    cols = jnp.minimum(cols, nx - 1)
+    deq, q = quant.plane_codec(storage, density)
+    # Source row offset: the slab form's output row r reads slab row r+1.
+    shift = 0 if wrap_y else 1
+    # Global row of source row 0 (0 for the full grid; row_offset-1 for a
+    # ghosted slab), and the driven row's position among the source rows.
+    g0 = g0_ref[0]
+    acc_src = lax.rem(accel_row - g0 + 2 * ny_global, ny_global)
+    acc_src = jnp.minimum(acc_src, n_src - 1)
 
-    # Storage codec: i16 mode keeps the HBM state as int16 fixed-point
-    # deviations from rest (ops/quant.py) — half the traffic of f32, with
-    # measured <=0.32% golden deviation over full runs.  All arithmetic
-    # stays f32; the codec wraps only the block loads and the output write.
-    deq, enq = quant.plane_codec(storage, density)
+    src_cols = {dx: _wrap(cols - dx, nx) for dx in (-1, 0, 1)}
+    # Injection guard per column shift: fluid source cell whose three
+    # decremented west-side speeds stay positive.
+    zero = F32(0.0)
+    ok = {}
+    for dx, sc in src_cols.items():
+        fluid = obst_ref[acc_src, sc] == 0
+        ok[dx] = (
+            fluid
+            & (deq(f_ref[3, acc_src, sc], 3) - w1 > zero)
+            & (deq(f_ref[6, acc_src, sc], 6) - w2 > zero)
+            & (deq(f_ref[7, acc_src, sc], 7) - w2 > zero)
+        )
 
-    # Obstacle encoding: 0.0 fluid, 1.0 wall, 0.5 lane-padding clone column
-    # whose source column is fluid.  Clones must receive the driven-row
-    # injection exactly like their source column (their values are pulled by
-    # real edge cells), but must never contribute to tot_u; their own output
-    # is overwritten by the in-kernel clone refresh.
-    #
-    # The driven-row injection is applied to the aligned (B, nx) body planes
-    # and separately to the two single ghost rows — never to a concatenated
-    # (B+2, nx) buffer, whose misaligned downstream slices would force Mosaic
-    # relayouts on every op (measured 91 -> 76 us/step at 1024^2).
-    fluid_body = obst_ref[0, 0:B, :] < F32(0.75)
-    # Original-grid row of a view row: row_off + (start + v) // fold.
-    view_iota = jax.lax.broadcasted_iota(jnp.int32, (B, 1), 0)
-    row_mask_body = (row_off + (start + view_iota) // F) == accel_row
-    body = [deq(f_ref[k], k) for k in range(NS)]
-    body = stencil_math.accel_planes(
-        body, fluid_body, row_mask_body, F32(w1a), F32(w2a)
-    )
-
-    # Lower ghost: carried in scratch from the previous grid step (grid steps
-    # are sequential on a TPU core).  Upper ghost: fetched by the pipeline as
-    # an aligned ghost-group block of f via a modular index map.  Shard-edge
-    # blocks take the external halo rows instead.  Each ghost is one
-    # original row = ``fold`` view rows.
-    at_lo_edge = i == 0
-    at_hi_edge = i == nb - 1
-    glo = [deq(jnp.where(at_lo_edge, lo_ref[k], prev_ref[k]), k) for k in range(NS)]
-    ghi = [deq(jnp.where(at_hi_edge, hi_ref[k], ghi8_ref[k, 0:F]), k) for k in range(NS)]
-    fluid_lo = obst_ref[0, B : B + F, :] < F32(0.75)
-    fluid_hi = obst_ref[0, B + F : B + 2 * F, :] < F32(0.75)
-    glo = stencil_math.accel_planes(
-        glo, fluid_lo, (row_off + start // F - 1) == accel_row, F32(w1a), F32(w2a)
-    )
-    ghi = stencil_math.accel_planes(
-        ghi, fluid_hi, (row_off + (start + B) // F) == accel_row, F32(w1a), F32(w2a)
-    )
-
-    # Leave this block's last original row for the next block's lower ghost.
+    planes = []
     for k in range(NS):
-        prev_ref[k] = f_ref[k, B - F : B]
+        sr = rows + shift - lattice.CY[k]
+        if wrap_y:
+            sr = _wrap(sr, n_src)
+        sc = src_cols[lattice.CX[k]]
+        v = deq(f_ref[k, sr[:, None], sc[None, :]], k)
+        if k in _ACCEL:
+            w_idx, sign = _ACCEL[k]
+            delta = F32(sign) * (w1 if w_idx == 1 else w2)
+            g = lax.rem(g0 + sr + ny_global, ny_global)
+            hit = (g == accel_row)[:, None] & ok[lattice.CX[k]][None, :]
+            v = v + jnp.where(hit, delta, zero)
+        planes.append(v)
 
-    # Pull streaming: y via one aligned concat per plane (one original row =
-    # fold view rows), x by the fold-aware lane rotation.
-    streamed = []
+    obst = obst_ref[rows[:, None] + shift, cols[None, :]] != 0
+    rho, u_x, u_y = stencil_math.moments(planes)
+    u_sq = u_x * u_x + u_y * u_y
+    out = stencil_math.collide(planes, obst, omega, rho, u_x, u_y, u_sq)
+    # Unmasked stores: a clamped tail lane recomputes its edge cell from
+    # the same sources, so duplicate writes carry identical values.
     for k in range(NS):
-        cy = lattice.CY[k]
-        if cy == 1:
-            rows = jnp.concatenate([glo[k], body[k][: B - F]], axis=0)
-        elif cy == -1:
-            rows = jnp.concatenate([body[k][F:], ghi[k]], axis=0)
-        else:
-            rows = body[k]
-        streamed.append(_fold_roll_x(rows, lattice.CX[k], F))
-
-    obst_own = obst_ref[0, 0:B] > F32(0.25)
-    out_planes, partial = stencil_math.collide_and_av(streamed, obst_own, F32(omega))
-    # Lane padding: refresh the two wrap-image clone columns in the output
-    # write itself (two lane-selects per plane).  Doing this outside the
-    # kernel costs full-array carry copies per step.
-    out_planes = refresh_clone_planes(list(out_planes), clone_nx)
-    for k in range(NS):
-        out_ref[k] = enq(out_planes[k], k)
-
-    # Accumulate the per-block |u| partial into a single SMEM cell revisited
-    # by every grid step (grid steps run sequentially on a TPU core).
-
-    @pl.when(i == 0)
-    def _():
-        sum_ref[0, 0] = partial
-
-    @pl.when(i != 0)
-    def _():
-        sum_ref[0, 0] = sum_ref[0, 0] + partial
+        out_ref[k, rows[:, None], cols[None, :]] = q(out[k], k).astype(
+            out_ref.dtype
+        )
+    speed = jnp.where(valid & ~obst, jnp.sqrt(u_sq), zero)
+    part = jnp.sum(speed, dtype=F32)
+    plgpu.store(part_ref.at[pl.ds(i * gx + j, 1)], jnp.reshape(part, (1,)))
 
 
-def _block_obstacles(
-    obst_ext: np.ndarray, block_rows: int, fold: int = 1
-) -> np.ndarray:
-    """Rearrange a ghost-extended (rows_v + 2*fold, nx_v) mask into per-block
-    ALIGNED blocks (nb, P, nx_v) float32: rows [0, B) body, rows [B, B+fold)
-    the lower ghost (one original row), rows [B+fold, B+2*fold) the upper
-    ghost, remaining rows sublane padding — so the body mask reads stay
-    tile-aligned in the kernel."""
-    F = fold
-    n, nx = obst_ext.shape[0] - 2 * F, obst_ext.shape[1]
-    B = block_rows
-    nb = n // B
-    P = _obst_block_rows(B, F)
-    out = np.zeros((nb, P, nx), dtype=np.float32)
-    for i in range(nb):
-        out[i, 0:B] = obst_ext[F + i * B : F + (i + 1) * B]
-        out[i, B : B + F] = obst_ext[i * B : i * B + F]  # lower ghost row
-        out[i, B + F : B + 2 * F] = obst_ext[
-            F + (i + 1) * B : 2 * F + (i + 1) * B
-        ]  # upper ghost row
-    return out
+def _state_dtype(storage: str):
+    if storage == "f32":
+        return F32
+    if storage == "i16":
+        return quant.I16
+    raise ValueError(f"unknown storage {storage!r}; use 'f32' or 'i16'")
 
 
 def _build_call(
-    params: LBMParams,
-    n_rows: int,
-    nx: int,
-    interpret: bool,
-    clone_nx: int | None = None,
-    folded_io: bool = False,
-    storage: str = "f32",
+    params: LBMParams, n_out: int, n_src: int, nx: int, ny_global: int,
+    wrap_y: bool, storage: str, block, interpret: bool,
+    tot_rows: tuple[int, int] | None = None,
 ):
-    """Build the pallas_call for an (n_rows, nx) shard.
-
-    Returns ``call(f, ghost_lo, ghost_hi, obst_blocks, row_offset)`` where
-    ghosts are (9, 1, nx) rows adjacent to the shard.  Wide grids
-    (nx = F * 1024) run in the FOLDED view (9, n_rows*F, 1024); callers stay
-    in original coordinates — the wrapper reshapes (a zero-cost row-major
-    reinterpretation).
-    """
-    F, rows_v, nx_v, B = _plan(n_rows, nx, clone_nx)
-    nb = rows_v // B
-    w1a, w2a = lattice.accel_weights(params.density, params.accel)
-
-    # Upper ghost rows ride the pipeline as aligned ghost-group blocks of f
-    # with a modular index map (the group starting at view row (i+1)*B);
-    # lower ghosts are carried in VMEM scratch from the previous grid step.
-    # Gathering ghosts outside the kernel instead costs a full extra HBM
-    # sweep of f.
-    G = max(8, F)
-    if nb > 1:
-        gG = B // G
-        nG = rows_v // G
-        ghi8_spec = pl.BlockSpec(
-            (NS, G, nx_v), lambda i: (0, (i * gG + gG) % nG, 0), memory_space=pltpu.VMEM
+    platform = jax.default_backend()
+    if not interpret and platform != "gpu":
+        raise ValueError(
+            f"the block kernel (--backend pallas) compiles for a GPU through "
+            f"Triton; this process runs on {platform!r}; use --backend jnp"
         )
-    else:
-        # Single block: external halos are always selected; give the ghost
-        # block any valid fixed mapping.
-        ghost_rows = G if rows_v % G == 0 else rows_v
-        ghi8_spec = pl.BlockSpec(
-            (NS, ghost_rows, nx_v), lambda i: (0, 0, 0), memory_space=pltpu.VMEM
-        )
-
+    by, bx, warps = block
+    gy, gx = pl.cdiv(n_out, by), pl.cdiv(nx, bx)
+    w1, w2 = lattice.accel_weights(params.density, params.accel)
     kernel = functools.partial(
-        _step_kernel,
-        block_rows=B,
-        omega=float(params.omega),
-        accel_row=params.accel_row,
-        w1a=float(w1a),
-        w2a=float(w2a),
-        clone_nx=clone_nx,
-        fold=F,
-        storage=storage,
-        density=float(params.density),
+        _kernel,
+        n_out=n_out, n_src=n_src, nx=nx, ny_global=ny_global,
+        wrap_y=wrap_y, accel_row=params.accel_row, w1=w1, w2=w2,
+        omega=np.float32(params.omega), density=float(params.density),
+        storage=storage, by=by, bx=bx, gx=gx,
+        tot_rows=tot_rows or (0, n_out),
     )
-    f_dtype = jnp.int16 if storage == "i16" else jnp.float32
-    f_bytes = 2 if storage == "i16" else 4
-
-    in_specs = [
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # row_offset (1,1)
-            pl.BlockSpec((NS, B, nx_v), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-            ghi8_spec,  # f again: upper-ghost group
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # external halo below (9,F,nx_v)
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # external halo above (9,F,nx_v)
-            pl.BlockSpec(
-                (1, _obst_block_rows(B, F), nx_v),
-                lambda i: (i, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-    ]
-    out_specs = (
-        pl.BlockSpec((NS, B, nx_v), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-    )
-
-    flops_per_cell = 160
-    call = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
-        grid=(nb,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[pltpu.VMEM((NS, F, nx_v), f_dtype)],
         out_shape=(
-            jax.ShapeDtypeStruct((NS, rows_v, nx_v), f_dtype),
-            jax.ShapeDtypeStruct((1, 1), jnp.float32),
+            jax.ShapeDtypeStruct((NS, n_out, nx), _state_dtype(storage)),
+            jax.ShapeDtypeStruct((gy * gx,), F32),
         ),
+        grid=(gy, gx),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps, num_stages=1),
         interpret=interpret,
-        **vmem.compiler_params(),
-        cost_estimate=pl.CostEstimate(
-            flops=flops_per_cell * n_rows * nx,
-            bytes_accessed=2 * NS * n_rows * nx * f_bytes + n_rows * nx * 4,
-            transcendentals=n_rows * nx,
-        ),
+        name="lbm_block_step",
     )
 
-    def step_slab(f, ghost_lo, ghost_hi, obst_blocks, row_offset):
-        """f (9, n_rows, nx); ghosts (9, 1, nx); obst_blocks (nb, P, nx_v)
-        f32; row_offset scalar int32 (global row of local row 0).
 
-        With folded_io, f and the ghosts arrive already folded and the
-        result stays folded (no per-step relayouts)."""
-        row_off = jnp.asarray(row_offset, dtype=jnp.int32).reshape(1, 1)
-        if F > 1 and not folded_io:
-            # NOTE: on TPU these reshapes are real relayout copies; prefer
-            # folded_io for hot paths.
-            f = f.reshape(NS, rows_v, nx_v)
-            ghost_lo = ghost_lo.reshape(NS, F, nx_v)
-            ghost_hi = ghost_hi.reshape(NS, F, nx_v)
-        new_f, tot = call(row_off, f, f, ghost_lo, ghost_hi, obst_blocks)
-        if F > 1 and not folded_io:
-            new_f = new_f.reshape(NS, n_rows, nx)
-        return new_f, tot[0, 0]
-
-    return step_slab, B, nb, F
-
-
-def _use_interpret() -> bool:
-    return jax.default_backend() == "cpu"
-
-
-def clone_col_encoding(obstacles: np.ndarray, nx_real: int) -> np.ndarray:
-    """Float obstacle encoding for a lane-padded (ny, nx_pad) bool mask.
-
-    The first and last pad columns are live clones of real columns 0 and
-    nx_real-1 (the periodic wrap images); mark them 0.5 where their source
-    column is fluid so they take the accel injection but stay excluded from
-    tot_u.  Walls and the junk pad columns stay 1.0.
-    """
-    enc = obstacles.astype(np.float32)
-    enc[:, nx_real] = np.where(obstacles[:, 0], np.float32(1.0), np.float32(0.5))
-    enc[:, -1] = np.where(
-        obstacles[:, nx_real - 1], np.float32(1.0), np.float32(0.5)
-    )
-    return enc
+def obstacle_codes(obstacles) -> np.ndarray:
+    """The kernel's obstacle layout: int8, nonzero = blocked."""
+    return np.asarray(obstacles).astype(np.int8)
 
 
 def make_step(
     params: LBMParams,
     obstacles: np.ndarray,
-    interpret: bool | None = None,
-    clone_cols_nx: int | None = None,
-    folded_io: bool = False,
     storage: str = "f32",
+    block=DEFAULT_BLOCK,
+    interpret: bool = False,
 ):
-    """Single-device step: ``f -> (f_new, tot_u)`` with periodic wrap ghosts.
+    """Full-grid periodic step: ``f -> (f_new, tot_u)`` over a (9, ny, nx)
+    state in ``storage`` representation."""
+    ny, nx = np.asarray(obstacles).shape
+    call = _build_call(params, ny, ny, nx, ny, True, storage, block, interpret)
+    obst = jnp.asarray(obstacle_codes(obstacles))
+    g0 = jnp.zeros((1,), jnp.int32)
 
-    ``clone_cols_nx``: real width of a lane-padded grid; enables the clone
-    column obstacle encoding (see :func:`clone_col_encoding`).
-
-    ``folded_io``: the step consumes and produces the FOLDED state
-    (9, ny*F, 1024) directly.  TPU HBM layouts are tiled, so reshaping
-    between the original and folded views is a real relayout copy — wide
-    grids should keep their state folded across the whole run (fold once at
-    init, unfold once at collate) and pass folded_io=True.
-    """
-    ny, nx = obstacles.shape
-    if not supports(params):
-        raise ValueError(
-            f"pallas block kernel cannot map a {ny}x{nx} grid: it requires "
-            f"nx % {LANE} == 0, ny >= 8, and a sublane-aligned row block "
-            "fitting the VMEM budget (too-wide grids: use the jnp backend)"
-        )
-    if interpret is None:
-        interpret = _use_interpret()
-    call, B, _, F = _build_call(
-        params, ny, nx, interpret, clone_nx=clone_cols_nx,
-        folded_io=folded_io, storage=storage,
-    )
-    if folded_io and F == 1:
-        raise ValueError("folded_io requires a foldable width (nx = F*1024)")
-    obst_f = (
-        clone_col_encoding(obstacles, clone_cols_nx)
-        if clone_cols_nx is not None
-        else obstacles
-    )
-    # Ghost-extend by one original row each side, then fold (row-major
-    # reinterpretation on the host: one original row = F view rows).
-    obst_ext = np.concatenate([obst_f[-1:], obst_f, obst_f[:1]], axis=0)
-    obst_ext = obst_ext.reshape((ny + 2) * F, nx // F)
-    obst_blocks = jnp.asarray(_block_obstacles(obst_ext, B, F))
-
-    if folded_io:
-
-        def step(f):
-            # f is (9, ny*F, 1024); periodic ghosts are the wrap rows.
-            return call(f, f[:, -F:, :], f[:, :F, :], obst_blocks, 0)
-
-    else:
-
-        def step(f):
-            return call(f, f[:, -1:, :], f[:, :1, :], obst_blocks, 0)
+    def step(f):
+        out, parts = call(g0, f, obst)
+        return out, jnp.sum(parts)
 
     return step
 
 
 def make_slab_step(
     params: LBMParams,
-    nloc: int,
+    n: int,
     nx: int,
-    interpret: bool | None = None,
-    clone_cols_nx: int | None = None,
+    ny_global: int,
     storage: str = "f32",
+    block=DEFAULT_BLOCK,
+    interpret: bool = False,
+    tot_rows: tuple[int, int] | None = None,
 ):
-    """Sharded per-shard step: ``(slab, obst_slab, row_offset) -> (f, tot_u)``.
+    """Ghosted-slab step: ``(slab (9, n+2, nx), obstacle codes (n+2, nx),
+    row_offset) -> ((9, n, nx), tot_u)``; ``row_offset`` is the global row
+    of slab row 1 and may be traced (the shard's axis index).  Slab rows
+    wrap modulo ``ny_global`` when locating the driven row; ``tot_rows``
+    ``(lo, hi)`` restricts the |u| sum to those output rows (default all).
 
-    Takes the same ghosted-slab interface as fused_jnp.fused_step_slab so the
-    distributed modes can swap backends.  The obstacle slab arrives as bool
-    (nloc+2, nx) — or float with the clone-column encoding when
-    ``clone_cols_nx`` marks a lane-padded grid.
+    A slab taller than the grid holds some global rows twice (deep ca halos
+    on few shards); every copy carries the same values, so the injection
+    guard may read any copy of the driven row.
     """
-    if interpret is None:
-        interpret = _use_interpret()
-    call, B, nb, F = _build_call(
-        params, nloc, nx, interpret, clone_nx=clone_cols_nx, storage=storage
+    if n < 1:
+        raise ValueError(f"a slab needs at least one output row, got {n}")
+    call = _build_call(
+        params, n, n + 2, nx, ny_global, False, storage, block, interpret,
+        tot_rows,
     )
 
-    P = _obst_block_rows(B, F)
-    nx_v = nx // F
-
     def step_slab(slab, obst_slab, row_offset):
-        f = slab[:, 1:-1, :]
-        ghost_lo = slab[:, :1, :]
-        ghost_hi = slab[:, -1:, :]
-        # Fold the ghosted mask: (nloc+2, nx) row-major == ((nloc+2)*F, nx_v)
-        # with F view rows per original row, ghosts included.
-        obst_f = obst_slab.astype(jnp.float32).reshape((nloc + 2) * F, nx_v)
-        pad = jnp.zeros((P - B - 2 * F, nx_v), dtype=jnp.float32)
-        obst_blocks = jnp.stack(
-            [
-                jnp.concatenate(
-                    [
-                        obst_f[F + i * B : F + (i + 1) * B],  # body
-                        obst_f[i * B : i * B + F],  # lower ghost
-                        obst_f[F + (i + 1) * B : 2 * F + (i + 1) * B],  # upper
-                        pad,
-                    ],
-                    axis=0,
-                )
-                for i in range(nb)
-            ]
-        )
-        return call(f, ghost_lo, ghost_hi, obst_blocks, row_offset)
+        g0 = jnp.reshape(row_offset - 1, (1,)).astype(jnp.int32)
+        out, parts = call(g0, slab, obst_slab)
+        return out, jnp.sum(parts)
 
     return step_slab

@@ -1,17 +1,16 @@
 """int16 fixed-point deviation storage for the distribution state.
 
-Large grids are HBM-bandwidth-bound (BENCHMARKS.md rooflines), so halving
-the bytes per lattice value doubles the perf ceiling.  Neither bf16 nor f16
-works here:
+The step is bound by memory traffic (it moves at least 72 B per cell in
+f32 against ~130 flops), so halving the bytes per lattice value doubles the
+ceiling.  bf16 does not work here:
 
 - raw bf16 state diverges (measured 50% av_vels error at 128^2): f values
   sit near w_k*rho0, so bf16's 8-bit mantissa rounds the physically
   meaningful *deviation* to ~2 bits;
-- bf16 deviations (f - w_k*rho0) still drift to 3.7% over 40000 steps;
-- f16 deviations pass (0.11% vs golden) but Mosaic has no f16
-  ("Unsupported type in mosaic dialect: 'f16'").
+- bf16 deviations (f - w_k*rho0) still drift to 3.7% over 40000 steps.
 
-int16 fixed-point deviations beat both: store
+f16 deviations were measured at 0.11% vs the golden (an open alternative,
+not implemented).  int16 fixed-point deviations: store
 ``q = round((f - w_k*rho0) * s_k)`` with per-plane scale
 ``s_k = 32767 / (RANGE_C * w_k * rho0)``.  The representable deviation range
 is RANGE_C * 100% of the rest weight — measured flow peaks at 17.8% over a
@@ -26,7 +25,7 @@ dequantize -> mirror -> requantize reproduces the identical int16 (the f32
 round-trip error is ~1e-3 of one quantization step), so walls do not drift.
 
 The reference has no reduced-precision mode — all variants are float
-(SerialCode/d2q9-bgk.c:78-81); this is a TPU-native capability addition.
+(SerialCode/d2q9-bgk.c:78-81); this is a capability addition.
 """
 
 from __future__ import annotations
@@ -59,11 +58,28 @@ def plane_rest(density: float) -> np.ndarray:
     )
 
 
+def round_half_even(x):
+    """``jnp.round`` (nearest integer, ties to even) from floor, compares
+    and selects — primitives every backend lowers, the Triton route
+    included, which has no round primitive.  Exact: ``a - floor(a)`` is
+    exact for ``a >= 0``, and rounding is odd-symmetric, so ``|x|`` is
+    rounded and the sign restored.  (``(x + 1.5*2**23) - 1.5*2**23`` would
+    not do: XLA folds it to ``x`` under jit.)
+    """
+    a = jnp.abs(x)
+    r = jnp.floor(a)
+    d = a - r
+    odd = (r - F32(2.0) * jnp.floor(r * F32(0.5))) == F32(1.0)
+    up = (d > F32(0.5)) | ((d == F32(0.5)) & odd)
+    r = jnp.where(up, r + F32(1.0), r)
+    return jnp.where(x < F32(0.0), -r, r)
+
+
 def quantize_plane(f_k, k: int, density: float):
     """f32 plane -> int16 quantized deviations (jnp; usable in kernels)."""
     s = float(plane_scales(density)[k])
     rest = float(plane_rest(density)[k])
-    q = jnp.round((f_k - F32(rest)) * F32(s))
+    q = round_half_even((f_k - F32(rest)) * F32(s))
     return jnp.clip(q, -_QMAX, _QMAX).astype(I16)
 
 
@@ -75,11 +91,10 @@ def dequantize_plane(q_k, k: int, density: float):
 
 
 def plane_codec(storage: str, density: float):
-    """Per-plane (dequantize, quantize) pair for a kernel's HBM storage mode.
+    """Per-plane (dequantize, quantize) pair for a kernel's storage mode.
 
     ``f32`` returns identity codecs; ``i16`` wraps loads/stores in the
-    fixed-point deviation transform.  Shared by the single-step and temporal
-    Pallas kernels so the storage handling cannot drift between them."""
+    fixed-point deviation transform."""
     if storage == "i16":
         return (
             lambda x, k: dequantize_plane(x, k, density),

@@ -1,7 +1,8 @@
-"""Shared per-cell D2Q9-BGK math, written for VPU economy.
+"""Shared per-cell D2Q9-BGK math.
 
-Used by both the jnp step (ops/fused_jnp.py) and the Pallas kernel
-(ops/fused_pallas.py) so the two backends produce bitwise-identical fields.
+Used by the XLA step (ops/fused_jnp.py), the block kernel
+(ops/fused_pallas.py) and the ensemble sweep, so every backend evaluates the
+same expression tree per cell.
 
 Two deviations from the literal reference expression order
 (SerialCode/d2q9-bgk.c:306-458), both mathematically identical in exact
@@ -21,44 +22,12 @@ arithmetic and verified to stay far inside the 1% output tolerance over full
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from lbm_tpu.core import lattice
 
 F32 = jnp.float32
 NS = lattice.NSPEEDS
-
-
-def accel_planes(planes, fluid, row_mask, w1, w2):
-    """Driven-row injection on 9 (R, nx) planes.
-
-    ``row_mask`` (R, 1) selects rows whose global index is the driven row;
-    the guard requires a fluid cell whose three decremented west-side speeds
-    stay positive (SerialCode/d2q9-bgk.c:216-246).
-    """
-    zero = F32(0.0)
-    ok = (
-        row_mask
-        & fluid
-        & (planes[3] - w1 > zero)
-        & (planes[6] - w2 > zero)
-        & (planes[7] - w2 > zero)
-    )
-    okf = ok.astype(F32)
-    d1 = okf * w1
-    d2 = okf * w2
-    return [
-        planes[0],
-        planes[1] + d1,
-        planes[2],
-        planes[3] - d1,
-        planes[4],
-        planes[5] + d2,
-        planes[6] - d2,
-        planes[7] - d2,
-        planes[8] + d2,
-    ]
 
 
 def moments(t):
@@ -119,31 +88,3 @@ def collide_and_av(streamed, obst, omega):
     out = collide(streamed, obst, omega, rho, u_x, u_y, u_sq)
     fluid = jnp.logical_not(obst)
     return out, speed_sum(u_sq, fluid)
-
-
-def collide_and_av_rows(streamed, obst, omega, row_mask=None):
-    """collide_and_av with the |u| partial reduced over ROWS only.
-
-    Returns (9 planes, (1, nx) lane vector).  On the TPU VPU the sublane
-    (row) reduction is plain adds while the lane reduction needs cross-lane
-    shuffles — callers that loop over row blocks accumulate these vectors
-    and lane-reduce ONCE per step (measured: the per-block scalar
-    reduction cost the in-place kernel 7.5 us/step at 1024², 13% — round-4
-    ablation, BENCHMARKS.md Rooflines).  Same values as collide_and_av up
-    to float-sum reordering (the documented av-partial grouping contract).
-
-    ``row_mask`` (rows, 1) bool, optional: rows excluded from the |u|
-    partial (ghost-extended slabs count only their central rows — the
-    in-place ca engine, ops/resident_pallas._ca_inplace_kernel); fields
-    are unaffected."""
-    rho, u_x, u_y = moments(streamed)
-    u_sq = u_x * u_x + u_y * u_y
-    out = collide(streamed, obst, omega, rho, u_x, u_y, u_sq)
-    fluid = jnp.logical_not(obst)
-    if row_mask is not None:
-        fluid = fluid & row_mask
-    vec = jnp.sum(
-        jnp.where(fluid, jnp.sqrt(u_sq), F32(0.0)),
-        axis=0, keepdims=True, dtype=F32,
-    )
-    return out, vec

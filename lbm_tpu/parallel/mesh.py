@@ -2,9 +2,11 @@
 
 The reference decomposes the grid into contiguous row bands across MPI ranks
 on a periodic ring (up = (r-1+P)%P, down = (r+1)%P, MPI/d2q9-bgk.c:205-211,
-674-695).  The TPU-native equivalent is a 1-D ``jax.sharding.Mesh`` whose
-single axis ``'rows'`` shards the y-dimension of the distribution arrays;
-halo exchange rides the ICI ring via ``lax.ppermute``.
+674-695).  The equivalent here is a 1-D ``jax.sharding.Mesh`` whose single
+axis ``'rows'`` shards the y-dimension of the distribution arrays; halo
+exchange is a ``lax.ppermute`` ring shift, which XLA hands to NCCL (on a
+host whose GPUs all reach each other over NVLink, the ring needs no device
+order).
 """
 
 from __future__ import annotations

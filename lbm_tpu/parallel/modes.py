@@ -1,4 +1,4 @@
-"""Row-sharded step programs: the three halo-exchange disciplines.
+"""Step programs: the single-device step and the row-sharded disciplines.
 
 The reference ladder implements one domain decomposition (1-D row bands with
 one halo row per side) under three communication disciplines:
@@ -13,13 +13,22 @@ one halo row per side) under three communication disciplines:
   (MPI_Testall_OptimizedVersion/d2q9-bgk.c:251-307).
 
 Here the decomposition is a ``shard_map`` over a 1-D mesh and the exchange is
-a pair of ``lax.ppermute`` ring shifts over ICI.  XLA SPMD is bulk-
-synchronous, so the async discipline becomes *deterministic bounded
+a pair of ``lax.ppermute`` ring shifts, which XLA hands to NCCL.  XLA SPMD is
+bulk-synchronous, so the async discipline becomes *deterministic bounded
 staleness*: the ppermute that delivers step t+1's halos is issued at step t
 and overlaps the whole of step t's compute, and boundary rows consume halo
 rows exactly one step (or k steps, ``async-k``) old.  This is a
 better-behaved version of the reference's "whatever arrived" semantics with
 the same accuracy contract (<1% deviation from sync, README.md:9-13).
+
+Two modes go beyond the reference: ``chunked`` (k local steps per exchange,
+stale ghosts) and ``ca`` (one K-deep exchange per K steps, then K exact
+steps on a shrinking slab — bitwise-equal to sync on fields, with the same
+per-step backend).
+
+Every program computes with the XLA step (ops/fused_jnp.py) unless the
+block kernel (ops/fused_pallas.py) is asked for; ``storage='i16'`` wraps
+either in the int16 codec of ops/quant.py, quantizing after every step.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from lbm_tpu.core import lattice
-from lbm_tpu.ops import fused_jnp, vmem
+from lbm_tpu.ops import fused_jnp, quant
 from lbm_tpu.params import LBMParams
 from lbm_tpu.parallel import mesh as mesh_lib
 
@@ -46,6 +55,9 @@ ROWS = mesh_lib.ROWS
 # drift.
 STALENESS_DEFAULTS = {"async": 1, "async-k": 2, "chunked": 2, "ca": 4}
 
+BACKENDS = ("jnp", "pallas")
+STORAGES = ("f32", "i16")
+
 
 def ca_depth(staleness: int) -> int:
     """Exchange depth of the ca mode for a --staleness value (min 2: a
@@ -53,29 +65,22 @@ def ca_depth(staleness: int) -> int:
     return max(2, staleness)
 
 
-def ca_default_staleness(
-    params, obstacles, num_shards: int, storage: str = "f32"
-) -> int:
-    """Measured-best default exchange depth for the ca mode when the user
-    gives no --staleness: K=8 at shards of >= 96 rows, else the K=4 table
-    default.  The round-4 engine head-to-head (scripts/exp_ca_engine.py,
-    ca_engine_choice's table) measured K=8 above K=4 at EVERY >= 96-row
-    shard shape for every engine (256x1024: 19.9k vs 16.9k in-place,
-    18.4k vs 15.7k slab; 512x2048: 21.0k vs 19.0k; 96x1024 resident:
-    16.2k vs 13.6k MLUPS/shard), and a deeper sweep also halves the
-    collective count at identical exchanged bytes per step (one K-row
-    halo per K steps either way).  Below 96 rows only K=4 was measured,
-    and the sweep's redundant-compute fraction 2K/nloc grows — the table
-    default stands.  Falls back to K=4 when the K=8 build cannot map
-    (engine gates), so auto never loses ca coverage to the deeper
-    default."""
-    import numpy as np
+def auto_backend(platform: str) -> str:
+    """Per-step compute the auto policy picks: the Triton block kernel on a
+    GPU — it beat the XLA step end to end at every measured grid, f32 and
+    i16 (PERF.md) — and the XLA step on any other platform (the kernel is
+    written for the Triton route only)."""
+    return "pallas" if platform == "gpu" else "jnp"
 
-    ny = np.asarray(obstacles).shape[0]
-    nloc = (ny + (-ny) % num_shards) // num_shards
-    if nloc >= 96 and ca_supported(params, obstacles, num_shards, 8, storage):
-        return 8
-    return STALENESS_DEFAULTS["ca"]
+
+def _check_storage(storage: str) -> None:
+    if storage not in STORAGES:
+        raise ValueError(f"unknown storage {storage!r}; use 'f32' or 'i16'")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; use 'jnp' or 'pallas'")
 
 
 @dataclasses.dataclass
@@ -89,47 +94,24 @@ class StepProgram:
     tot_cells: int
     mesh: Any | None
     variant: str
-    # Optional whole-run fast path: (num_steps) -> (f0 -> (f, tot_us)).
-    # Used by the driver when per-step observation (frames) is not needed —
-    # the VMEM-resident Pallas kernel plugs in here.
-    make_run_all: Callable[[int], Callable] | None = None
-    # Timesteps advanced per step() call; >1 for the chunked-async mode
+    # Timesteps advanced per step() call; >1 for the chunked and ca modes
     # (step then returns a (steps_per_call,) tot_u vector).
     steps_per_call: int = 1
-    # Compute backend actually selected ("jnp" / "pallas"); informational.
+    # Compute backend actually selected ("jnp" / "pallas").
     backend: str | None = None
     # Global grid extents of the *internal* (possibly seam-padded) state;
     # on-device buffers indexed like the grid (e.g. frame captures) must use
     # this shape so their sharding divides evenly.  f_of/u_mag still return
     # the unpadded user view.
     global_shape: tuple[int, int] | None = None
-    # Multi-step (chunked) programs only: the chunk decomposed into its two
-    # primitives so the driver's frame path can stop at mid-chunk capture
-    # points without changing the schedule.  chunk_inner_step advances ONE
-    # step with frozen ghosts (no exchange); chunk_exchange refreshes the
-    # ghosts (and pad clones) exactly as the whole-chunk step() does after
-    # its k inner steps.  step() == k x inner + exchange (tested).
+    # Chunked programs only: the chunk decomposed into its two primitives
+    # so the driver's frame path can stop at mid-chunk capture points
+    # without changing the schedule.  chunk_inner_step advances ONE step
+    # with frozen ghosts (no exchange); chunk_exchange refreshes the ghosts
+    # (and pad clones) exactly as the whole-chunk step() does after its k
+    # inner steps.  step() == k x inner + exchange (tested).
     chunk_inner_step: Callable[[Any], tuple[Any, jax.Array]] | None = None
     chunk_exchange: Callable[[Any], Any] | None = None
-    # ca mode only: which K-sweep engine backs the schedule — "resident"
-    # (VMEM-resident extended-slab kernel) or "slab" (streaming temporal
-    # slab sweep).  Informational; the dryrun certifies the routed engine.
-    engine: str | None = None
-
-
-def lane_pad_cols(nx: int) -> int:
-    """Columns of padding needed to lane-align a grid for the Pallas kernels.
-
-    The two outermost pad columns double as live clones of the wrapped real
-    edge columns (x is periodic), so at least two are required; when the
-    natural remainder is 1, pad a full extra lane group.
-    """
-    from lbm_tpu.ops import fused_pallas
-
-    p = (-nx) % fused_pallas.LANE
-    if p == 1:
-        p += fused_pallas.LANE
-    return p
 
 
 def open_seam_pad(obstacles: np.ndarray, num_shards: int) -> int:
@@ -147,33 +129,6 @@ def open_seam_pad(obstacles: np.ndarray, num_shards: int) -> int:
     return 0 if walled else pad
 
 
-def _pad_cols_arrays(
-    params: LBMParams, obstacles: np.ndarray, f0: np.ndarray | None, p: int
-):
-    """Blocked-column padding with clone columns at both ends.
-
-    Layout: [real cols 0..nx-1 | clone(col 0) | junk | clone(col nx-1)].
-    Cell nx-1 pulls +x from index nx (clone of col 0) and cell 0 pulls -x
-    from the last index (clone of col nx-1), so the lane rotation's wrap at
-    the padded width reproduces the true periodic wrap at nx exactly.  Pad
-    columns are obstacle-masked: they evolve as finite bounce-back garbage
-    (never read by real cells except the refreshed clones) and contribute
-    nothing to tot_u.
-    """
-    ny, nx = obstacles.shape
-    obst_p = np.concatenate([obstacles, np.ones((ny, p), dtype=bool)], axis=1)
-    f0_p = None
-    if f0 is not None:
-        f0 = np.asarray(f0, dtype=np.float32)
-        junk = np.broadcast_to(
-            lattice.equilibrium_rest(params.density, ny, 1), (9, ny, p)
-        ).copy()
-        f0_p = np.concatenate([f0, junk], axis=2)
-        f0_p[:, :, nx] = f0[:, :, 0]
-        f0_p[:, :, -1] = f0[:, :, nx - 1]
-    return obst_p, f0_p
-
-
 def _u_mag_fn(obstacles: jax.Array) -> Callable[[jax.Array], jax.Array]:
     def u_mag(f: jax.Array) -> jax.Array:
         rho = jnp.sum(f, axis=0)
@@ -185,700 +140,99 @@ def _u_mag_fn(obstacles: jax.Array) -> Callable[[jax.Array], jax.Array]:
     return u_mag
 
 
-def temporal_impl_choice(
-    params: LBMParams,
-    K: int,
-    clone_cols_nx: int | None = None,
-    storage: str = "f32",
-) -> str | None:
-    """Which temporal-blocking kernel runs a K-deep sweep on this grid:
-    ``'skew'`` (ops/skew_pallas.py, zero-recompute forward/reverse pairs),
-    ``'trapezoid'`` (ops/temporal_pallas.py), or None when neither maps.
-
-    Shared by the driver dispatch and ``--plan`` so the printed plan cannot
-    drift from the executed one.  ``LBM_TEMPORAL_IMPL`` forces an impl
-    (``skew`` / ``trapezoid``).  Auto, from same-session raw sweeps
-    (BENCHMARKS.md round 3):
-
-    - f32 prefers the skewed pair — it won or tied the trapezoid at every
-      measured grid (4096^2 K=4 19.3k vs 12.3k; 2048^2 K=4 16.2k vs
-      13.4k; 512^2 K=4 13.7k vs the 12.7k trapezoid best);
-    - i16 prefers the TRAPEZOID below ~256 MiB working set (1024^2 K=4
-      16.4k vs the pair's 15.0k same-session; 2048^2 K=8 19.2k vs
-      16.1k): with traffic already halved the pair's carried inter-block
-      rows cost more than the trapezoid's ghost fetch.  Above that the
-      pair wins again (4096^2 i16 K=8 17.2k vs 16.4k).
-
-    The other impl is the fallback where the preferred one cannot map.
-
-    ``'hbm'`` (ops/hbm_pallas.py, the triple-buffered manual-DMA
-    pipelined sweep) is a forceable third impl (``LBM_TEMPORAL_IMPL=hbm``)
-    for measurement; auto adopts it only where a full-driver A/B shows a
-    win (scripts/exp_hbm.py)."""
-    import os
-
-    from lbm_tpu.ops import hbm_pallas, skew_pallas, temporal_pallas
-
-    impl = os.environ.get("LBM_TEMPORAL_IMPL", "auto")
-    trap_ok = temporal_pallas.supports(params, K, clone_cols_nx, storage)
-    skew_ok = skew_pallas.supports(params, K, clone_cols_nx, storage)
-    if impl == "trapezoid":
-        return "trapezoid" if trap_ok else None
-    if impl == "skew":
-        return "skew" if skew_ok else None
-    if impl == "hbm":
-        return "hbm" if hbm_pallas.supports(params, K, clone_cols_nx, storage) else None
+def _codec(storage: str, density: float):
+    """(dequantize, quantize) for a whole (9, ...) state."""
     if storage == "i16":
-        f_bytes = 2
-        working_set = 2 * 9 * params.ny * params.nx * f_bytes
-        if working_set <= 256 * 1024 * 1024 and trap_ok:
-            return "trapezoid"
-    if skew_ok:
-        return "skew"
-    if trap_ok:
-        return "trapezoid"
-    return None
-
-
-def ca_engine_choice(
-    params: LBMParams,
-    nloc: int,
-    nx: int,
-    K: int,
-    *,
-    pad_cols: int = 0,
-    storage: str = "f32",
-    backend: str = "pallas",
-    ny_global: int | None = None,
-) -> str | None:
-    """Which K-sweep engine backs the exact ca discipline for this shard
-    shape: ``'slab'`` (streaming temporal slab sweep,
-    ops/temporal_pallas.make_slab_sweep), ``'resident'`` (monolithic
-    VMEM-resident extended-slab kernel, ops/resident_pallas.
-    make_ca_chunk_runner), ``'inplace'`` (single-buffer blocked resident
-    sweep, ops/resident_pallas.make_ca_inplace_runner — the grid-level
-    in-place kernel's structure on the ghost-extended slab), or None when
-    none maps (ca unsupported).
-
-    Shared by the mode builder and ``--plan``.  ``LBM_CA_ENGINE`` forces an
-    engine (``slab`` / ``resident`` / ``inplace``).  Auto follows the
-    round-4 on-chip
-    head-to-head (scripts/exp_ca_engine.py, healthy session, frozen-ghost
-    kernel rates, MLUPS/shard):
-
-    | shard       | resident | inplace | slab  | winner  |
-    |-------------|----------|---------|-------|---------|
-    | 64x1024 K4  | 10.0k    | 9.7k    | 9.4k  | resident|
-    | 96x1024 K4  | 13.6k    | 10.2k   | 10.8k | resident|
-    | 96x1024 K8  | 16.2k    | 15.5k   | 14.9k | resident|
-    | 112x1024 K4 | 12.7k    | 11.7k   | 10.5k | resident|
-    | 128x1024 K4 | 10.7k    | 12.9k   | 13.4k | slab +4%|
-    | 128x1024 K8 | 14.7k    | 16.2k   | 15.6k | inplace |
-    | 256x1024 K4 | 9.5k     | 16.9k   | 15.7k | inplace |
-    | 256x1024 K8 | 13.5k    | 19.9k   | 18.4k | inplace |
-    | 256x2048 K4 | 10.0k    | 18.6k   | 12.4k | inplace |
-    | 512x2048 K4 | —        | 19.0k   | 15.6k | inplace |
-    | 512x2048 K8 | —        | 21.0k   | 15.5k | inplace |
-
-    i.e. the monolithic resident extended-slab kernel wins NARROW shards
-    (<= 1024 lanes) up to ~112 rows — past either edge Mosaic schedules
-    its whole-slab ops poorly and the rate collapses — and the in-place
-    blocked sweep wins everywhere else it maps (its one measured loss
-    among whole-shard shapes, 128x1024 K=4, is 4%; it wins that shard's
-    K=8 by the same margin).  Auto therefore picks resident inside the
-    narrow box, in-place outside it, and the streaming slab as the
-    coverage fallback: i16 storage, clone-column padding, K < 2.
-
-    Shards past the in-place engine's 48 MiB verified band (its 72/88 MiB
-    builds hang or HTTP-500 the compile helper,
-    resident_pallas._ca_inplace_plan) run as SPLIT sub-sweeps
-    (resident_pallas.ca_inplace_parts — K-deep local ghosts, bitwise).
-    Plain runs then ride the parts-carried whole-run hook (the state stays
-    as per-part arrays across the scan), measured at K=8: 18.0k at
-    1024x2048 (slab: 13.1k), 17.6k at 2048x2048 (12.1k), 18.7k at
-    512x4096 — a shape where NO other engine maps and the per-step
-    kernels run 4.6k.  The per-step split step() (frames, --debug, odd
-    tails) pays ~75 us/step of part-IO round-trips instead (11.9k at
-    1024x2048 — slightly below slab on that one shape; the plain path
-    dominates).  All three engines stay forceable for certification.
-    """
-    import os
-
-    from lbm_tpu.ops import resident_pallas, temporal_pallas
-
-    if backend != "pallas":
-        return None
-    # ny_global: the INTERNAL (row-padded) global row count the build will
-    # actually run — the in-place engine's ext<=ny one-hot gate must see the
-    # same grid the runner is constructed with (ADVICE r4: evaluating it
-    # against the smaller unpadded params.ny rejected the engine on walled
-    # row-padded grids where it maps).  None = unpadded scenes.
-    if ny_global is None:
-        ny_global = params.ny
-    slab_ok = temporal_pallas.supports_shard(
-        params, nloc, nx, K, clone_nx=nx - pad_cols if pad_cols else None
-    )
-    res_ok = (
-        storage == "f32"
-        and not pad_cols
-        and resident_pallas.supports_ca_shard(nloc, nx, K)
-    )
-    inp_ok = not pad_cols and resident_pallas.supports_ca_inplace(
-        nloc, nx, K, ny_global, storage
-    )
-    forced = os.environ.get("LBM_CA_ENGINE", "auto").strip().lower()
-    if forced == "slab":
-        return "slab" if slab_ok else None
-    if forced == "resident":
-        return "resident" if res_ok else None
-    if forced == "inplace":
-        return "inplace" if inp_ok else None
-    if storage == "i16":
-        # i16: slab-first is MEASURED policy (round-5 head-to-head,
-        # BENCHMARKS.md i16 table): the slab sweep won EVERY i16 shard
-        # shape (128x1024 K=4 13.6k vs 12.0k in-place; 256x1024 K=8
-        # 18.6k vs 16.7k; 512x2048 K=8 18.1k vs 17.2k; 1024x2048 K=8
-        # 17.6k vs 17.3k MLUPS/shard) — the in-place engine's per-window
-        # dequant/requant tax loses to once-per-sweep quantization, the
-        # same result as the grid-level i16 comparison.  In-place is the
-        # COVERAGE engine where no slab maps (e.g. 4096-lane shards);
-        # LBM_CA_ENGINE=inplace forces it.  The monolithic resident
-        # engine stays f32-only (narrow-box shards are exactly where the
-        # slab i16 sweep already maps).
-        if slab_ok:
-            return "slab"
-        if inp_ok:
-            return "inplace"
-        return None
-    in_narrow_box = nloc <= 112 and nx <= 1024
-    if res_ok and (in_narrow_box or not (slab_ok or inp_ok)):
-        return "resident"
-    if inp_ok and not in_narrow_box:
-        return "inplace"
-    if slab_ok:
-        return "slab"
-    if inp_ok:
-        return "inplace"
-    return None
-
-
-def _temporal_run_all(
-    params: LBMParams,
-    obstacles: np.ndarray,
-    storage: str = "f32",
-    clone_cols_nx: int | None = None,
-    folded_io: bool = False,
-    temporal_k: int | None = None,
-):
-    """make_run_all hook running K timesteps per HBM sweep (the skewed
-    pair kernel ops/skew_pallas.py or the trapezoid ops/temporal_pallas.py,
-    see :func:`temporal_impl_choice`), or None when the grid can't map it.
-
-    ``temporal_k``: None picks the depth heuristically, 1 disables the
-    temporal path, >=2 forces a depth."""
-    from lbm_tpu.ops import skew_pallas, temporal_pallas
-
-    K = (
-        temporal_k
-        if temporal_k is not None
-        else temporal_pallas.pick_k(params, storage)
-    )
-    impl = (
-        temporal_impl_choice(params, K, clone_cols_nx, storage)
-        if K >= 2
-        else None
-    )
-    if impl is None:
-        if temporal_k is not None and temporal_k >= 2:
-            import warnings
-
-            warnings.warn(
-                f"--temporal-k {temporal_k} was requested but the "
-                f"{params.nx}x{params.ny} grid cannot map the temporal "
-                "sweep at that depth; falling back to the single-step "
-                "kernel (use --plan to see the mapping constraints)",
-                stacklevel=2,
-            )
-        return None
-
-    obst = np.asarray(obstacles)
-    if impl == "hbm":
-        from lbm_tpu.ops import hbm_pallas
-
-        mod = hbm_pallas
-    else:
-        mod = skew_pallas if impl == "skew" else temporal_pallas
-
-    def make_run_all(num_steps):
-        return mod.make_run_all(
-            params, obst, num_steps, K,
-            clone_cols_nx=clone_cols_nx, folded_io=folded_io, storage=storage,
+        return (
+            lambda q: quant.dequantize(q, density),
+            lambda f: quant.quantize(f, density),
         )
-
-    return make_run_all
+    ident = lambda x: x
+    return ident, ident
 
 
 def build_single_program(
     params: LBMParams,
     obstacles: np.ndarray,
     f0: np.ndarray | None = None,
-    backend: str = "jnp",
+    backend: str | None = None,
     storage: str = "f32",
-    temporal_k: int | None = None,
+    interpret: bool = False,
 ) -> StepProgram:
-    """Single-device program (periodic full grid); ``backend`` selects the
-    jnp step or the Pallas kernel.
+    """Single-device program (periodic full grid).
 
-    Grids whose nx is not lane-aligned are transparently lane-padded for the
-    Pallas backend (blocked pad columns with per-step clone refresh of the
-    two wrap-image columns), so scenes of any width get kernel speed
-    (VERDICT r1 #10).
+    ``backend``: ``'jnp'`` (the XLA-fused step) or ``'pallas'`` (the Triton
+    block kernel; ``interpret=True`` runs it in the Pallas interpreter, for
+    tests on a host without a GPU); None = :func:`auto_backend`.
 
-    ``storage='i16'`` keeps the HBM state as int16 fixed-point deviations
-    (ops/quant.py): half the memory traffic, <=0.32% measured golden
-    deviation.  Requires the pallas block kernel."""
-    if storage not in ("f32", "i16"):
-        raise ValueError(f"unknown storage {storage!r}; use 'f32' or 'i16'")
-    if storage == "i16":
-        if backend != "pallas":
-            raise ValueError("storage 'i16' requires the pallas backend")
-        return _i16_single_program(params, obstacles, f0, temporal_k)
-    if backend == "pallas" and params.nx % 128:
-        prog = _lane_padded_single_program(
-            params, obstacles, f0, temporal_k=temporal_k
-        )
-        if prog is not None:
-            return prog
-    if backend == "pallas":
-        from lbm_tpu.ops import fused_pallas, resident_pallas
-
-        if (
-            not resident_pallas.supports(params)
-            and fused_pallas.supports(params)
-            and fused_pallas._fold_factor(params.nx) > 1
-        ):
-            from lbm_tpu.ops import temporal_pallas
-
-            K_eff = (
-                temporal_k
-                if temporal_k is not None
-                else temporal_pallas.pick_k(params)
-            )
-            if not (
-                K_eff >= 2
-                and temporal_impl_choice(params, K_eff) == "hbm"
-            ):
-                # Wide grids (nx = F*1024): delegate BEFORE building f0 so
-                # the folded path can do its own device-side folded init —
-                # feeding a device f0 through would round-trip multi-GB
-                # state via the host.  The hbm-pipelined sweep instead
-                # computes at the NATIVE lane width (its part slabs handle
-                # 2048+ lanes like the ca engines do); folding exists for
-                # the streaming block kernels' benefit, so an hbm-mapped
-                # grid falls through to the unfolded program.
-                return _folded_single_program(
-                    params, obstacles, f0, temporal_k=temporal_k
-                )
+    ``storage='i16'`` keeps the state as int16 fixed-point deviations
+    (ops/quant.py): half the memory traffic, quantized after every step.
+    """
+    _check_storage(storage)
+    backend = backend or auto_backend(jax.default_backend())
+    _check_backend(backend)
     if f0 is None:
-        # Device-side broadcast init: no multi-GB host upload at 4096²+.
+        # Device-side broadcast init: no multi-GB host upload at 8192².
         f0 = lattice.equilibrium_rest_device(params.density, params.ny, params.nx)
     obst = jnp.asarray(obstacles, dtype=bool)
-    tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
+    dens = float(params.density)
+    deq, q = _codec(storage, dens)
 
-    make_run_all = None
-    variant = backend
     if backend == "pallas":
-        from lbm_tpu.ops import fused_pallas, resident_pallas
+        from lbm_tpu.ops import fused_pallas
 
-        if resident_pallas.supports(params):
-            # Whole-run fast path: chunks of steps fully resident in VMEM.
-            # av_mode: measured layout (resident_pallas.auto_av_mode —
-            # 'vector' moves the per-step cross-lane |u| reduction outside
-            # the kernel, ~0.1 us/step at the mono-band grids).
-            _av_mode = resident_pallas.auto_av_mode(params.ny, params.nx)
-
-            def make_run_all(num_steps, _av=_av_mode):
-                return resident_pallas.make_run_all(
-                    params, np.asarray(obstacles), num_steps, av_mode=_av
-                )
-
-            variant = "pallas-resident"
-        elif temporal_k is None and (
-            resident_pallas.auto_raised_plan(params) is not None
-        ):
-            # Raised-limit resident regime (measured bands, TPU only):
-            # the single-buffer IN-PLACE kernel everywhere it fits since
-            # round 4 (healthy-session driver full runs: 512² 24.8k, 768²
-            # 26.6k, 1024² 27.0k MLUPS — each above the monolithic band),
-            # monolithic @120 as the fallback/forced alternative.  See
-            # resident_pallas.auto_raised_plan for the compile-safe
-            # ladder.  An explicit --temporal-k opts back into the
-            # streaming sweeps.
-            _res_mb, _res_inplace = resident_pallas.auto_raised_plan(params)
-
-            def make_run_all(
-                num_steps, _mb=_res_mb, _inplace=_res_inplace
-            ):
-                if num_steps < 2 and not _inplace:
-                    # A 1-step ping-pong blocked launch is a length-1 scan,
-                    # whose inlined pallas output stack-allocates in VMEM
-                    # and OOMs the raised limit (see resident_pallas
-                    # make_run_all) — the caller falls back to the
-                    # bitwise-identical per-step block kernel.  The
-                    # in-place kernel's aliased output has no such copy.
-                    return None
-                return resident_pallas.make_run_all(
-                    params, np.asarray(obstacles), num_steps,
-                    limit_mb=_mb, inplace=_inplace,
-                )
-
-            variant = "pallas-resident"
-        if fused_pallas.supports(params):
-            if make_run_all is None:
-                # Grids too big for the resident kernel: K timesteps per
-                # HBM sweep (the state streams are the whole step cost —
-                # BENCHMARKS.md roofline).
-                make_run_all = _temporal_run_all(
-                    params, obstacles, temporal_k=temporal_k
-                )
-            kernel_step = fused_pallas.make_step(params, np.asarray(obstacles))
-
-            def step(f):
-                return kernel_step(f)
-
-        else:
-            # Resident-only grids (e.g. short-wide): per-step observation
-            # (frames/debug) falls back to the jnp step.
-            def step(f):
-                return fused_jnp.fused_step_single(f, obst, params)
-
-            if not resident_pallas.supports(params):
-                # Neither kernel maps this grid: a forced pallas run would
-                # silently execute jnp.  Say so, in the variant name too.
-                import warnings
-
-                warnings.warn(
-                    f"backend 'pallas' cannot map a {params.ny}x{params.nx} "
-                    "grid (nx not lane-aligned and too large for the "
-                    "resident kernel); running the XLA-fused jnp step "
-                    "instead",
-                    stacklevel=3,
-                )
-                variant = "pallas(jnp-fallback)"
-
+        step = fused_pallas.make_step(
+            params, np.asarray(obstacles), storage=storage, interpret=interpret
+        )
     else:
 
-        def step(f):
-            return fused_jnp.fused_step_single(f, obst, params)
+        def step(state):
+            f, tot_u = fused_jnp.fused_step_single(deq(state), obst, params)
+            return q(f), tot_u
 
     mag = _u_mag_fn(obst)
     return StepProgram(
-        init_state=jnp.asarray(f0, dtype=jnp.float32),
+        init_state=q(jnp.asarray(f0, dtype=jnp.float32)),
         step=step,
-        f_of=lambda f: f,
-        u_mag=mag,
-        tot_cells=tot_cells,
+        f_of=deq,
+        u_mag=lambda s: mag(deq(s)),
+        tot_cells=int(obstacles.size - np.count_nonzero(obstacles)),
         mesh=None,
-        variant=variant,
-        make_run_all=make_run_all,
+        variant=backend + ("-i16" if storage == "i16" else ""),
         global_shape=(params.ny, params.nx),
         backend=backend,
     )
 
 
-def sharded_pallas_supported(ny: int, nx: int, num_shards: int) -> bool:
-    """Whether the Pallas slab kernel can map this sharded layout (after
-    lane/row padding).  Used to pick the fast backend by default."""
-    from lbm_tpu.ops import fused_pallas
-
-    if nx % fused_pallas.LANE:
-        p = lane_pad_cols(nx)
-        if fused_pallas._kernel_footprint(8, nx + p) > vmem.scale(fused_pallas._VMEM_BUDGET):
-            return False
-        nx += p
-    ny_pad = ny + ((-ny) % num_shards)
-    nloc = ny_pad // num_shards
-    if nloc < 2:
-        return False
-    try:
-        fused_pallas.pick_block_rows(nloc, nx)
-    except ValueError:
-        return False
-    return True
-
-
 def ca_supported(
-    params: LBMParams,
     obstacles: np.ndarray,
     num_shards: int,
     staleness: int = STALENESS_DEFAULTS["ca"],
-    storage: str = "f32",
 ) -> bool:
     """Whether ca mode can map this scene over ``num_shards`` — mirrors the
-    build_sharded_program gate exactly (lane padding feasibility, no open
-    seams, a K-sweep engine that maps: the VMEM-resident extended-slab
-    sweeps or the streaming temporal slab sweep).  Used by the driver's
-    auto policy and by --plan's will-FAIL prediction.
-
-    Round 5: the gate is the ENGINE's own mapping test, not the per-step
-    slab kernel's — ca's step never calls the per-step kernel (tails and
-    frame micro-steps run through separate sync programs that pick their
-    own backend), so requiring sharded_pallas_supported over-rejected the
-    shapes only the in-place split engine maps (e.g. 8192-lane shards)."""
-    from lbm_tpu.ops import fused_pallas
-
-    ny, nx = obstacles.shape
-    pad_cols = 0
-    if nx % fused_pallas.LANE:
-        # Mirror build_sharded_program's lane-padding feasibility gate: the
-        # padded-width block kernel footprint must fit, else the grid stays
-        # unpadded (and the non-lane-aligned engines reject below).
-        p = lane_pad_cols(nx)
-        if fused_pallas._kernel_footprint(8, nx + p) <= vmem.scale(
-            fused_pallas._VMEM_BUDGET
-        ):
-            pad_cols = p
-    pad_rows = (-ny) % num_shards
+    build_sharded_program gate exactly: no open seam, and shards of at least
+    K rows (a K-deep exchange takes K rows from each neighbour).  Used by
+    the driver's auto policy and by --plan's will-FAIL prediction."""
+    ny = obstacles.shape[0]
     if open_seam_pad(obstacles, num_shards):
-        return False  # ca rejects open-seam row padding
-    nloc = (ny + pad_rows) // num_shards
-    if nloc < 2:
         return False
-    K = ca_depth(staleness)
-    # Same engine policy as the mode builder (ca_engine_choice's round-4
-    # three-engine auto: monolithic resident inside the narrow box, in-place
-    # blocked sweep elsewhere, streaming slab as the coverage fallback,
-    # LBM_CA_ENGINE force) — support means SOME engine maps.
-    return (
-        ca_engine_choice(
-            params, nloc, nx + pad_cols, K,
-            pad_cols=pad_cols, storage=storage,
-            ny_global=ny + pad_rows,
-        )
-        is not None
-    )
+    nloc = (ny + (-ny) % num_shards) // num_shards
+    return nloc >= ca_depth(staleness)
 
 
-def _i16_single_program(
-    params: LBMParams,
-    obstacles: np.ndarray,
-    f0: np.ndarray | None,
-    temporal_k: int | None = None,
-) -> StepProgram:
-    """Single-device program with int16 fixed-point state (ops/quant.py).
-
-    Dispatches to the same lane-padded / folded layouts as the f32 pallas
-    path; only the HBM representation changes (the kernel dequantizes on
-    load and requantizes on store)."""
-    from lbm_tpu.ops import fused_pallas
-
-    if params.nx % 128:
-        prog = _lane_padded_single_program(
-            params, obstacles, f0, storage="i16", temporal_k=temporal_k
-        )
-        if prog is None:
-            raise ValueError(
-                f"storage 'i16' requires the pallas block kernel, which "
-                f"cannot map a {params.ny}x{params.nx} grid even lane-padded"
-            )
-        return prog
-    if not fused_pallas.supports(params):
-        raise ValueError(
-            f"storage 'i16' requires the pallas block kernel, which cannot "
-            f"map a {params.ny}x{params.nx} grid"
-        )
-    if fused_pallas._fold_factor(params.nx) > 1:
-        return _folded_single_program(
-            params, obstacles, f0, storage="i16", temporal_k=temporal_k
-        )
-    from lbm_tpu.ops import quant, resident_pallas
-
-    if resident_pallas.supports(params) or (
-        resident_pallas.auto_raised_plan(params) is not None
-    ):
-        import warnings
-
-        warnings.warn(
-            f"this {params.ny}x{params.nx} grid maps the VMEM-resident f32 "
-            "kernel, which is exact and at least as fast as any i16 path "
-            "(1024^2 healthy session: f32 in-place resident 22.0-22.7k "
-            "MLUPS vs i16 temporal 19.9k; i16's single-chip win is the "
-            "regime f32 cannot keep resident, e.g. 2048^2); prefer f32 "
-            "here unless measuring the i16 path itself",
-            stacklevel=4,
-        )
-
-    if f0 is None:
-        f0 = lattice.equilibrium_rest_device(params.density, params.ny, params.nx)
-    dens = float(params.density)
-    step = fused_pallas.make_step(params, np.asarray(obstacles), storage="i16")
-    obst = jnp.asarray(obstacles, dtype=bool)
-    mag = _u_mag_fn(obst)
-
-    def deq(q):
-        return quant.dequantize(q, dens)
-
-    variant = "pallas-i16"
-    make_run_all = None
-    if temporal_k is None:
-        # In-place resident i16 band (VERDICT r3 #1): one int16 state buffer
-        # in VMEM — half the resident footprint, which extends the zero-HBM
-        # regime to the 1536²/1792² grids f32 cannot map (measured 18.5k /
-        # 19.7k MLUPS, both grid bests; 2048² is a recorded negative — the
-        # i16 kernel crashes the compile helper at every limit >= 80 MiB).
-        # An explicit --temporal-k opts back into the streaming sweeps,
-        # mirroring the f32 path's escape hatch.
-        res_plan = resident_pallas.auto_raised_plan(params, "i16")
-        if res_plan is not None:
-            _mb, _ = res_plan
-
-            def make_run_all(num_steps, _mb=_mb):
-                return resident_pallas.make_run_all(
-                    params, np.asarray(obstacles), num_steps,
-                    limit_mb=_mb, inplace=True, storage="i16",
-                )
-
-            variant = "pallas-resident-i16"
-    if make_run_all is None:
-        make_run_all = _temporal_run_all(
-            params, obstacles, storage="i16", temporal_k=temporal_k
-        )
-
-    return StepProgram(
-        init_state=quant.quantize(jnp.asarray(f0, dtype=jnp.float32), dens),
-        step=step,
-        f_of=deq,
-        u_mag=lambda q: mag(deq(q)),
-        tot_cells=int(obstacles.size - np.count_nonzero(obstacles)),
-        mesh=None,
-        variant=variant,
-        make_run_all=make_run_all,
-        global_shape=(params.ny, params.nx),
-        backend="pallas",
-    )
-
-
-def _folded_single_program(
-    params: LBMParams,
-    obstacles: np.ndarray,
-    f0: np.ndarray | None,
-    storage: str = "f32",
-    temporal_k: int | None = None,
-) -> StepProgram:
-    """Single-device program for wide grids with folded state storage.
-
-    The (9, ny, F*1024) state lives as (9, ny*F, 1024) for the entire run —
-    a host-side row-major reinterpretation at init, unfolded once at
-    collate (f_of) — so the kernel always computes at the efficient
-    1024-lane shape with zero per-step relayout."""
-    from lbm_tpu.ops import fused_pallas
-
-    ny, nx = params.ny, params.nx
-    F = fused_pallas._fold_factor(nx)
-    nx_v = nx // F
-    if f0 is None:
-        # Device-side broadcast init: no multi-GB host upload at 4096²+.
-        f0_v = lattice.equilibrium_rest_device(params.density, ny * F, nx_v)
-    else:
-        f0_v = jnp.asarray(
-            np.asarray(f0, dtype=np.float32).reshape(9, ny * F, nx_v)
-        )
-    step = fused_pallas.make_step(
-        params, np.asarray(obstacles), folded_io=True, storage=storage
-    )
-    mag = _u_mag_fn(jnp.asarray(obstacles, dtype=bool))
-    tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
-    variant = "pallas-folded"
-    if storage == "i16":
-        from lbm_tpu.ops import quant
-
-        dens = float(params.density)
-        init_state = quant.quantize(f0_v, dens)
-        unfold = lambda q: quant.dequantize(q, dens).reshape(9, ny, nx)
-        variant = "pallas-folded-i16"
-    else:
-        init_state = f0_v
-        unfold = lambda f: f.reshape(9, ny, nx)
-    return StepProgram(
-        init_state=init_state,
-        step=step,
-        f_of=unfold,
-        u_mag=lambda f: mag(unfold(f)),
-        tot_cells=tot_cells,
-        mesh=None,
-        variant=variant,
-        make_run_all=_temporal_run_all(
-            params, obstacles, storage=storage, folded_io=True,
-            temporal_k=temporal_k,
-        ),
-        global_shape=(ny, nx),
-        backend="pallas",
-    )
-
-
-def _lane_padded_single_program(
-    params: LBMParams,
-    obstacles: np.ndarray,
-    f0: np.ndarray | None,
-    storage: str = "f32",
-    temporal_k: int | None = None,
-) -> StepProgram | None:
-    """Wrap the Pallas single-device program in lane padding, or None if the
-    block kernel cannot map even the padded grid."""
-    from lbm_tpu.ops import fused_pallas
-
-    p = lane_pad_cols(params.nx)
-    padded = params.replace(nx=params.nx + p)
-    if not fused_pallas.supports(padded):
-        return None
-    nx = params.nx
-    obst_p, f0_p = _pad_cols_arrays(params, obstacles, f0, p)
-    if f0_p is None:
-        f0_p = lattice.equilibrium_rest_device(params.density, params.ny, padded.nx)
-    # The kernel refreshes the clone columns in its own output write.
-    step = fused_pallas.make_step(padded, obst_p, clone_cols_nx=nx, storage=storage)
-    mag = _u_mag_fn(jnp.asarray(obst_p, dtype=bool))
-    tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
-    init_state = jnp.asarray(f0_p, dtype=jnp.float32)
-    variant = "pallas-lanepad"
-    deq = lambda f: f
-    if storage == "i16":
-        from lbm_tpu.ops import quant
-
-        dens = float(params.density)
-        init_state = quant.quantize(init_state, dens)
-        deq = lambda q: quant.dequantize(q, dens)
-        variant = "pallas-lanepad-i16"
-    return StepProgram(
-        init_state=init_state,
-        step=step,
-        f_of=lambda f: deq(f)[:, :, :nx],
-        u_mag=lambda f: mag(deq(f))[:, :nx],
-        tot_cells=tot_cells,
-        mesh=None,
-        variant=variant,
-        # The temporal sweep refreshes the clone columns at every level, so
-        # padded grids get the K-steps-per-sweep path too.
-        make_run_all=_temporal_run_all(
-            padded, obst_p, storage=storage, clone_cols_nx=nx,
-            temporal_k=temporal_k,
-        ),
-        global_shape=(params.ny, padded.nx),
-        backend="pallas",
-    )
-
-
-def _extended_obstacle_slabs(obstacles: np.ndarray, num_shards: int) -> np.ndarray:
-    """Per-shard obstacle slabs with one (periodically wrapped) ghost row on
-    each side, shape (R, nloc+2, nx).  Static, built once at init — the
-    analog of the reference's per-rank obstacle scatter
+def _extended_obstacle_slabs(
+    obstacles: np.ndarray, num_shards: int, depth: int = 1
+) -> np.ndarray:
+    """Per-shard obstacle slabs with ``depth`` (periodically wrapped) ghost
+    rows on each side, shape (R, nloc+2*depth, nx).  Static, built once at
+    init — the analog of the reference's per-rank obstacle scatter
     (MPI/d2q9-bgk.c:730-828), with ghost rows added because the fused step
     applies the driven-row injection to ghost rows too."""
     ny, _ = obstacles.shape
     nloc = ny // num_shards
     slabs = []
     for r in range(num_shards):
-        rows = np.arange(r * nloc - 1, r * nloc + nloc + 1) % ny
+        rows = np.arange(r * nloc - depth, r * nloc + nloc + depth) % ny
         slabs.append(obstacles[rows])
     return np.stack(slabs)
 
@@ -893,77 +247,45 @@ def build_sharded_program(
     backend: str | None = None,
     storage: str = "f32",
     build_init: bool = True,
+    interpret: bool = False,
 ) -> StepProgram:
-    """Row-sharded step program over ``mesh`` in one of the three disciplines.
+    """Row-sharded step program over ``mesh`` in one of the disciplines.
 
     Args:
-      mode: "sync", "overlap", "async", or "chunked".  "async" with
+      mode: "sync", "overlap", "async", "chunked" or "ca".  "async" with
         staleness > 1 is the explicit halo-queue variant, the deterministic
         analog of the reference's old-halo bookkeeping
         (MPI_Testall_ComplexVersion/d2q9-bgk.c:271-346).  "chunked" goes
         beyond the reference: halos are exchanged every ``staleness`` steps
         and each shard advances that many steps between exchanges (ghost age
         grows 1..k within a chunk), amortizing collective latency k-fold.
+        "ca" exchanges K = ca_depth(staleness) rows each way every K steps
+        and recomputes the halo levels locally: exact, K-fold fewer
+        collectives.
       staleness: halo age in steps for async mode (k >= 1); chunk length for
-        chunked mode.
-      backend: "jnp" or "pallas" for the per-shard slab compute; None picks
-        the Pallas kernel whenever it can map the (padded) shard layout —
-        the fast path is the default, like the reference whose default
-        binary IS the optimized parallel build (MPI/d2q9-bgk.c:130-331).
+        chunked mode; exchange depth for ca.
+      backend: "jnp" or "pallas" for the per-shard slab step (ca runs it
+        once per level); None = :func:`auto_backend`.
       storage: "f32" or "i16" (int16 fixed-point deviation state,
-        ops/quant.py).  i16 halves both the per-shard HBM traffic and the
-        halo-exchange bytes on the ICI ring; requires the pallas backend.
+        ops/quant.py).  i16 halves both the per-shard memory traffic and the
+        halo-exchange bytes.
       build_init: False skips constructing the initial distribution state
         (``init_state`` is None; no host allocation or device transfer) —
         for auxiliary step-only programs the driver lowers against an
         existing live state.  Only the bare-f modes (sync/overlap/ca)
         support this; the ghost-carrying modes derive their carry from f0.
+      interpret: run the block kernel in the Pallas interpreter (tests).
     """
     ny, nx = obstacles.shape
     num_shards = mesh.shape[ROWS]
-    if storage not in ("f32", "i16"):
-        raise ValueError(f"unknown storage {storage!r}; use 'f32' or 'i16'")
-    auto_backend = backend is None
-    if auto_backend:
-        # ca never runs the per-step slab kernel (its step is the K-sweep
-        # engine; tails/frame micro-steps are separate sync programs that
-        # pick their own backend), so its auto backend is pallas whenever
-        # ANY engine maps — including shapes the per-step kernel cannot
-        # (8192-lane shards ride the in-place split engine).  The engine
-        # gate below rejects with a pointed message when none maps.
-        backend = (
-            "pallas"
-            if (
-                sharded_pallas_supported(ny, nx, num_shards)
-                or (
-                    mode == "ca"
-                    and ca_supported(
-                        params, obstacles, num_shards, staleness, storage
-                    )
-                )
-            )
-            else "jnp"
-        )
-    if storage == "i16" and backend != "pallas":
-        raise ValueError(
-            "storage 'i16' requires the pallas slab kernel, which cannot map "
-            f"this {ny}x{nx} layout over {num_shards} shards"
-            if auto_backend
-            else f"storage 'i16' requires the pallas backend, got {backend!r}"
-        )
+    _check_storage(storage)
+    backend = backend or auto_backend(jax.default_backend())
+    _check_backend(backend)
+    if mode not in ("sync", "overlap", "async", "chunked", "ca"):
+        raise ValueError(f"unknown sharded mode {mode!r}")
+    if staleness < 1:
+        raise ValueError("staleness must be >= 1")
     ny_orig = ny
-    nx_orig = nx
-    pad_cols = 0
-    if backend == "pallas" and nx % 128:
-        from lbm_tpu.ops import fused_pallas
-
-        p = lane_pad_cols(nx)
-        # Feasibility gate: the narrowest legal block must fit VMEM at the
-        # padded width; otherwise leave the grid alone (jnp slab fallback).
-        if fused_pallas._kernel_footprint(8, nx + p) <= vmem.scale(fused_pallas._VMEM_BUDGET):
-            pad_cols = p
-            obstacles, f0 = _pad_cols_arrays(params, obstacles, f0, p)
-            nx += p
     pad_rows = (-ny) % num_shards
     open_pad = 0
     if pad_rows:
@@ -1003,34 +325,18 @@ def build_sharded_program(
             f"open-seam padding rows but shards have only {nloc} rows; "
             "choose fewer devices"
         )
-    if mode not in ("sync", "overlap", "async", "chunked", "ca"):
-        raise ValueError(f"unknown sharded mode {mode!r}")
-    if staleness < 1:
-        raise ValueError("staleness must be >= 1")
+    K_ca = ca_depth(staleness)
     if mode == "ca":
-        # Communication-avoiding exact mode: one K-deep raw halo exchange
-        # per K steps, boundary levels recomputed locally in the temporal
-        # slab sweep (ops/temporal_pallas.py) — bitwise-equal to K
-        # synchronous steps, with collective latency amortized K-fold.
-        from lbm_tpu.ops import resident_pallas, temporal_pallas
-
-        K_ca = ca_depth(staleness)
         if open_pad:
             raise ValueError(
                 "ca mode does not support open-seam row padding; use a "
                 "shard count that divides ny, or the sync/overlap variants"
             )
-        ca_engine = ca_engine_choice(
-            params, nloc, nx, K_ca, pad_cols=pad_cols,
-            storage=storage, backend=backend, ny_global=ny,
-        )
-        if ca_engine is None:
+        if nloc < K_ca:
             raise ValueError(
-                f"ca mode requires a K-sweep engine (the VMEM-resident "
-                f"extended-slab sweeps or the temporal pallas slab sweep), "
-                f"none of which can map {nloc}x{nx} shards at depth "
-                f"K={K_ca}; use sync/overlap (or fewer devices / a "
-                "lane-aligned width)"
+                f"ca mode exchanges K={K_ca} rows each way but shards have "
+                f"only {nloc} rows; use a smaller --staleness, fewer "
+                "devices, or sync/overlap"
             )
 
     if f0 is None:
@@ -1042,17 +348,16 @@ def build_sharded_program(
         )
     tot_cells = int(obstacles.size - np.count_nonzero(obstacles))
     fwd, bwd = mesh_lib.ring_perms(num_shards)
+    dens = float(params.density)
+    deq, q = _codec(storage, dens)
 
     f_sharding = mesh_lib.row_sharding(mesh)
-    obst_for_slabs = obstacles
-    if pad_cols:
+    depth = K_ca if mode == "ca" else 1
+    slabs_host = _extended_obstacle_slabs(obstacles, num_shards, depth)
+    if backend == "pallas":
         from lbm_tpu.ops import fused_pallas
 
-        # Clone-column encoding (0.5): accel like the source column, no av.
-        obst_for_slabs = fused_pallas.clone_col_encoding(
-            obstacles, nx - pad_cols
-        )
-    slabs_host = _extended_obstacle_slabs(obst_for_slabs, num_shards)
+        slabs_host = fused_pallas.obstacle_codes(slabs_host)
     if jax.process_count() > 1:
         # Multi-controller: jitted functions may not close over arrays that
         # span non-addressable devices.  Keep the static obstacle data as
@@ -1068,35 +373,34 @@ def build_sharded_program(
         )
     f_init = None
     if f0 is not None:
-        f_init = jnp.asarray(f0, dtype=jnp.float32)
-        if storage == "i16":
-            from lbm_tpu.ops import quant
-
-            f_init = quant.quantize(f_init, float(params.density))
+        f_init = q(jnp.asarray(f0, dtype=jnp.float32))
         f_init = jax.device_put(f_init, f_sharding)
 
     if backend == "pallas":
         from lbm_tpu.ops import fused_pallas
 
-        # The overlap discipline computes interior and boundary sub-slabs of
-        # different heights; build (and cache) one kernel per slab height.
-        _slab_steps: dict[int, Any] = {}
+        # The overlap discipline and the ca levels compute sub-slabs of
+        # different heights; build (and cache) one kernel per shape.
+        _slab_steps: dict[tuple, Any] = {}
 
-        def local_slab_step(slab, obst_slab, row_offset):
-            n = slab.shape[1] - 2
-            if n not in _slab_steps:
-                _slab_steps[n] = fused_pallas.make_slab_step(
-                    params, n, nx,
-                    clone_cols_nx=nx - pad_cols if pad_cols else None,
-                    storage=storage,
+        def local_slab_step(slab, obst_slab, row_offset, tot_rows=None):
+            key = (slab.shape[1] - 2, tot_rows)
+            if key not in _slab_steps:
+                _slab_steps[key] = fused_pallas.make_slab_step(
+                    params, key[0], nx, ny, storage=storage,
+                    interpret=interpret, tot_rows=tot_rows,
                 )
-            return _slab_steps[n](slab, obst_slab, row_offset)
+            return _slab_steps[key](slab, obst_slab, row_offset)
 
     else:
 
-        def local_slab_step(slab, obst_slab, row_offset):
+        def local_slab_step(slab, obst_slab, row_offset, tot_rows=None):
             """(9, n+2, nx) ghosted slab -> ((9, n, nx), tot_u)."""
-            return fused_jnp.fused_step_slab(slab, obst_slab, params, row_offset)
+            new_f, tot_u = fused_jnp.fused_step_slab(
+                deq(slab), obst_slab, params, row_offset, ny_global=ny,
+                tot_rows=tot_rows,
+            )
+            return q(new_f), tot_u
 
     def exchange(f_local):
         """Ring halo exchange: returns (ghost row below, ghost row above) —
@@ -1124,9 +428,7 @@ def build_sharded_program(
 
         Open-seam rows: overwrite the last shard's pad rows with fresh clones
         of the global first rows (the periodic wrap images) — one ppermute of
-        open_pad rows.  (Lane-padding clone *columns* are refreshed inside
-        the Pallas kernel's output write; the exchanged rows already carry
-        them.)  Identity when unpadded."""
+        open_pad rows.  Identity when unpadded."""
         if open_pad:
             recv = lax.ppermute(new_f[:, :open_pad, :], ROWS, bwd)
             is_last = lax.axis_index(ROWS) == num_shards - 1
@@ -1139,7 +441,7 @@ def build_sharded_program(
     def shard_row_offset():
         return lax.axis_index(ROWS) * nloc
 
-    # --- the three per-shard step disciplines -------------------------------
+    # --- the per-shard step disciplines -------------------------------------
 
     def step_sync(f_local, obst_slab):
         ghost_lo, ghost_hi = exchange(f_local)
@@ -1197,171 +499,58 @@ def build_sharded_program(
         new_f, tot_u = local_slab_step(slab, obst_slab, shard_row_offset())
         return (refresh_pads(new_f), q_lo, q_hi), tot_u
 
-    if (
-        backend == "pallas"
-        and mode == "chunked"
-        and storage == "f32"  # the VMEM-resident chunk kernel is f32-only
-        and not open_pad
-        and not pad_cols
-    ):
-        from lbm_tpu.ops import resident_pallas
-
-        if resident_pallas.supports_shard(nloc, nx):
-            ghosted_chunk = resident_pallas.make_ghosted_chunk_runner(
-                params, nloc, nx, staleness
-            )
-        else:
-            ghosted_chunk = None
-    else:
-        ghosted_chunk = None
-
-    if mode == "ca":
-        from lbm_tpu.ops import resident_pallas, temporal_pallas
-
-        # K_ca and the engine were fixed by ca_engine_choice above (see
-        # its measured win boxes: monolithic resident on narrow shards,
-        # in-place blocked sweep elsewhere, streaming slab as the coverage
-        # fallback).  All are bitwise-equal to K synchronous steps on
-        # fields; their
-        # av partials group rows differently (~1-ulp float-sum reordering,
-        # the documented temporal-kernel contract).
-        ca_parts = 1
-        if ca_engine == "inplace":
-            import os
-
-            forced_parts = os.environ.get("LBM_CA_PARTS", "").strip()
-            ca_parts = (
-                int(forced_parts)
-                if forced_parts
-                else (
-                    resident_pallas.ca_inplace_parts(
-                        nloc, nx, K_ca, ny, storage
-                    )
-                    or 1
-                )
-            )
-            ca_sweep = resident_pallas.make_ca_inplace_runner(
-                params, nloc, nx, K_ca, ny_global=ny, parts=ca_parts,
-                storage=storage,
-            )
-        elif ca_engine == "resident":
-            ca_sweep = resident_pallas.make_ca_chunk_runner(
-                params, nloc, nx, K_ca, ny_global=ny
-            )
-        else:
-            # ny_global makes shard 0's seam-strip row indices wrap to the
-            # true top rows.
-            ca_sweep = temporal_pallas.make_slab_sweep(
-                params, nloc, nx, K_ca,
-                clone_cols_nx=nx - pad_cols if pad_cols else None,
-                storage=storage,
-                ny_global=ny,
-            )
-        # K-deep ghost-extended obstacle slabs for the sweep's boundary
-        # recomputation (periodic wrap, like _extended_obstacle_slabs).
-        ca_slabs_host = np.stack(
-            [
-                obst_for_slabs[
-                    np.arange(r * nloc - K_ca, r * nloc + nloc + K_ca) % ny
-                ]
-                for r in range(num_shards)
-            ]
-        )
-        if jax.process_count() > 1:
-            ca_obst_slabs = np.asarray(ca_slabs_host)
-        else:
-            ca_obst_slabs = jax.device_put(
-                jnp.asarray(ca_slabs_host),
-                NamedSharding(mesh, P(ROWS, None, None)),
-            )
-
-    def step_ca(f_local, obst_slab_ext):
+    def step_ca(f_local, obst_ext):
         # Communication-avoiding EXACT discipline (beyond the reference's
         # ladder): exchange the K raw boundary rows once, then advance K
-        # steps in one temporal sweep that recomputes the halo rows' level
-        # evolution locally.  The standard CA-stencil schedule: same
-        # per-step results as sync (bitwise), one collective per K steps.
-        send_lo = f_local[:, -K_ca:, :]
-        send_hi = f_local[:, :K_ca, :]
-        ghost_lo = lax.ppermute(send_lo, ROWS, fwd)
-        ghost_hi = lax.ppermute(send_hi, ROWS, bwd)
+        # steps on a slab that shrinks by one row per side per step — the
+        # halo rows' evolution is recomputed locally.  The standard
+        # CA-stencil schedule: the same per-cell arithmetic as sync, one
+        # collective per K steps.
+        ghost_lo = lax.ppermute(f_local[:, -K_ca:, :], ROWS, fwd)
+        ghost_hi = lax.ppermute(f_local[:, :K_ca, :], ROWS, bwd)
         f_local, ghost_lo, ghost_hi = lax.optimization_barrier(
             (f_local, ghost_lo, ghost_hi)
         )
-        new_f, tots = ca_sweep(
-            f_local, ghost_lo, ghost_hi, obst_slab_ext, shard_row_offset()
-        )
-        return new_f, tots
-
-    # Parts-carried fast path for SPLIT in-place ca: per-step, the split
-    # composition pays ~75 us/step of part-IO round-trips (slice + concat
-    # through HBM every sweep — 1024x2048: 11.9k vs the 18.0k the same
-    # sub-kernels sustain when the state STAYS as parts, measured round 4).
-    # The whole-run hook keeps the state as per-part arrays across the scan
-    # (the exchange only reads edge rows: part 0's top / part -1's bottom),
-    # splitting once at entry and joining once at exit — amortized over a
-    # 4000-step segment.  Fields/av are bitwise-identical to the per-step
-    # split runner: the same inner kernel consumes the same pre-sweep
-    # neighbor values, and avs sum in the same part order.
-    if mode == "ca" and ca_engine == "inplace" and ca_parts > 1:
-        sub_ca = nloc // ca_parts
-        inner_ca = resident_pallas.make_ca_inplace_runner(
-            params, sub_ca, nx, K_ca, ny_global=ny, parts=1, storage=storage
-        )
-
-        def step_ca_parts(ps, obst_slab_ext):
-            send_lo = ps[-1][:, -K_ca:, :]
-            send_hi = ps[0][:, :K_ca, :]
-            ghost_lo = lax.ppermute(send_lo, ROWS, fwd)
-            ghost_hi = lax.ppermute(send_hi, ROWS, bwd)
-            barrier = lax.optimization_barrier((*ps, ghost_lo, ghost_hi))
-            ps, ghost_lo, ghost_hi = barrier[:-2], barrier[-2], barrier[-1]
-            off = shard_row_offset()
-            new, av = [], None
-            for i in range(ca_parts):
-                out_i, av_i = inner_ca(
-                    ps[i],
-                    ps[i - 1][:, -K_ca:, :] if i else ghost_lo,
-                    ps[i + 1][:, :K_ca, :] if i < ca_parts - 1 else ghost_hi,
-                    obst_slab_ext[i * sub_ca : i * sub_ca + sub_ca + 2 * K_ca],
-                    off + i * sub_ca,
-                )
-                new.append(out_i)
-                av = av_i if av is None else av + av_i
-            return tuple(new), av
+        ext = jnp.concatenate([ghost_lo, f_local, ghost_hi], axis=1)
+        off = shard_row_offset()
+        tots = []
+        for s in range(K_ca):
+            # ext holds nloc + 2(K-s) rows, the first at global row
+            # off-(K-s); this level's output drops one row per side.
+            halo = K_ca - s - 1
+            n_out = nloc + 2 * halo
+            ext, tot_u = local_slab_step(
+                ext, obst_ext[s : s + n_out + 2], off - halo,
+                tot_rows=(halo, halo + nloc),
+            )
+            tots.append(tot_u)
+        return ext, jnp.stack(tots)
 
     def step_chunked(carry, obst_slab):
         # Beyond the reference: advance `staleness` steps per halo exchange,
         # with ghost rows frozen for the chunk (age 1..k).  One ppermute pair
         # per k steps — collective latency amortized k-fold, and the inner
-        # steps are a pure local loop (VMEM-friendly).
+        # steps are a pure local loop.
         f_local, ghost_lo, ghost_hi = carry
         off = shard_row_offset()
-        if ghosted_chunk is not None:
-            # The whole chunk runs inside one VMEM-resident kernel: zero HBM
-            # traffic between the k inner steps.
-            f_local, tots = ghosted_chunk(
-                f_local, ghost_lo, ghost_hi, obst_slab.astype(jnp.float32), off
-            )
-        else:
-            # Open-seam pads must stay valid within the chunk: freeze them at
-            # their chunk-start clone values (consistent with the frozen
-            # ghosts) — evolving them would feed garbage, not stale data, to
-            # the top real row's pulls.
+        # Open-seam pads must stay valid within the chunk: freeze them at
+        # their chunk-start clone values (consistent with the frozen
+        # ghosts) — evolving them would feed garbage, not stale data, to
+        # the top real row's pulls.
+        if open_pad:
+            is_last = lax.axis_index(ROWS) == num_shards - 1
+            pads0 = f_local[:, nloc - open_pad :, :]
+        tot_list = []
+        for _ in range(staleness):
+            slab = jnp.concatenate([ghost_lo, f_local, ghost_hi], axis=1)
+            f_local, tot_u = local_slab_step(slab, obst_slab, off)
             if open_pad:
-                is_last = lax.axis_index(ROWS) == num_shards - 1
-                pads0 = f_local[:, nloc - open_pad :, :]
-            tot_list = []
-            for _ in range(staleness):
-                slab = jnp.concatenate([ghost_lo, f_local, ghost_hi], axis=1)
-                f_local, tot_u = local_slab_step(slab, obst_slab, off)
-                if open_pad:
-                    frozen = jnp.concatenate(
-                        [f_local[:, : nloc - open_pad, :], pads0], axis=1
-                    )
-                    f_local = jnp.where(is_last, frozen, f_local)
-                tot_list.append(tot_u)
-            tots = jnp.stack(tot_list)
+                frozen = jnp.concatenate(
+                    [f_local[:, : nloc - open_pad, :], pads0], axis=1
+                )
+                f_local = jnp.where(is_last, frozen, f_local)
+            tot_list.append(tot_u)
+        tots = jnp.stack(tot_list)
         new_ghosts = exchange(f_local)
         return (refresh_pads(f_local), *new_ghosts), tots
 
@@ -1370,11 +559,10 @@ def build_sharded_program(
     f_spec = P(None, ROWS, None)
     slab_spec = P(ROWS, None, None)
 
-    def spmd(per_shard, state_specs, slabs=None):
+    def spmd(per_shard, state_specs):
         """shard_map a per-shard step into a global-state step; the obstacle
         slab rides along and tot_u is psum-reduced (the MPI_Reduce analog,
         MPI/d2q9-bgk.c:298-309)."""
-        slabs = obst_slabs if slabs is None else slabs
 
         def shard_fn(state, obst_slab):
             new_state, tot_u = per_shard(state, obst_slab[0])
@@ -1389,59 +577,17 @@ def build_sharded_program(
         )
 
         def step(state):
-            return mapped(state, slabs)
+            return mapped(state, obst_slabs)
 
         return step
 
     # Per-shard ghost rows live as global arrays of shape (9, R, nx) sharded
     # over the middle axis, one row per shard, so they reuse f_spec.
-    sharded_run_all = None  # set by split-parts ca below
-    if mode == "sync":
-        step = spmd(step_sync, f_spec)
-        init_state = f_init
-        f_of = lambda s: s
-    elif mode == "ca":
-        step = spmd(step_ca, f_spec, slabs=ca_obst_slabs)
-        init_state = f_init
-        f_of = lambda s: s
-        if ca_engine == "inplace" and ca_parts > 1:
-            parts_step = spmd(
-                step_ca_parts, (f_spec,) * ca_parts, slabs=ca_obst_slabs
-            )
-            split_f = jax.shard_map(
-                lambda fl: tuple(
-                    fl[:, i * sub_ca : (i + 1) * sub_ca, :]
-                    for i in range(ca_parts)
-                ),
-                mesh=mesh,
-                in_specs=f_spec,
-                out_specs=(f_spec,) * ca_parts,
-                check_vma=False,
-            )
-            join_f = jax.shard_map(
-                lambda *ps: jnp.concatenate(ps, axis=1),
-                mesh=mesh,
-                in_specs=(f_spec,) * ca_parts,
-                out_specs=f_spec,
-                check_vma=False,
-            )
-
-            def sharded_run_all(num_steps):
-                if num_steps % K_ca:
-                    return None  # driver falls back to the per-step scan
-
-                def run_all(f):
-                    def body(ps, _):
-                        return parts_step(ps)
-
-                    ps, tots = lax.scan(
-                        body, split_f(f), None, length=num_steps // K_ca
-                    )
-                    return join_f(*ps), tots.reshape(-1)
-
-                return run_all
-    elif mode == "overlap":
-        step = spmd(step_overlap, f_spec)
+    if mode in ("sync", "overlap", "ca"):
+        step = spmd(
+            {"sync": step_sync, "overlap": step_overlap, "ca": step_ca}[mode],
+            f_spec,
+        )
         init_state = f_init
         f_of = lambda s: s
     else:  # async / chunked
@@ -1492,13 +638,10 @@ def build_sharded_program(
 
     mag_local = _u_mag_fn(obst_global)
     if storage == "i16":
-        from lbm_tpu.ops import quant
-
         _raw_f_of = f_of
-        dens = float(params.density)
 
         def f_of(state):  # noqa: F811 — wraps the storage codec
-            return quant.dequantize(_raw_f_of(state), dens)
+            return deq(_raw_f_of(state))
 
     # Chunk primitives for the driver's frame path (see StepProgram): one
     # frozen-ghost step and one ghost exchange, composing bitwise to the
@@ -1542,13 +685,13 @@ def build_sharded_program(
 
     f_of_padded = f_of
 
-    if pad_rows or pad_cols:
-        # External views (final state, frames) drop the padding rows/columns.
+    if pad_rows:
+        # External views (final state, frames) drop the padding rows.
         def f_of(state):  # noqa: F811 — deliberately shadows the padded view
-            return f_of_padded(state)[:, :ny_orig, :nx_orig]
+            return f_of_padded(state)[:, :ny_orig, :]
 
         def u_mag(state):
-            return mag_local(f_of_padded(state))[:ny_orig, :nx_orig]
+            return mag_local(f_of_padded(state))[:ny_orig, :]
 
     else:
 
@@ -1562,13 +705,12 @@ def build_sharded_program(
         u_mag=u_mag,
         tot_cells=tot_cells,
         mesh=mesh,
-        make_run_all=sharded_run_all,
         variant=f"{mode}"
         + (
             # ca reports its *effective* exchange depth, not the raw
             # staleness knob (ca_depth(1)=2: --staleness 1 still runs a
             # 2-step schedule and the label must say so).
-            f"-{ca_depth(staleness)}"
+            f"-{K_ca}"
             if mode == "ca"
             else f"-{staleness}"
             if mode in ("async", "chunked") and staleness > 1
@@ -1577,12 +719,11 @@ def build_sharded_program(
         + ("-i16" if storage == "i16" else ""),
         steps_per_call=(
             staleness if mode == "chunked"
-            else ca_depth(staleness) if mode == "ca"
+            else K_ca if mode == "ca"
             else 1
         ),
         global_shape=(ny, nx),
         backend=backend,
         chunk_inner_step=chunk_inner_step,
         chunk_exchange=chunk_exchange,
-        engine=ca_engine if mode == "ca" else None,
     )

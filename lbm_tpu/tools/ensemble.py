@@ -2,10 +2,10 @@
 program, batched with ``jax.vmap``.
 
 The reference's parameter studies (relaxation/acceleration sensitivity,
-README.md:104-123) run the binary once per setting.  On TPU the idiomatic
-shape is a *batched* simulation: ``vmap`` lifts the fused step over a leading
-instance axis, XLA compiles one program whose elementwise work is B-fold
-wider (far better VPU utilization than B dispatch-bound small runs), and
+README.md:104-123) run the binary once per setting.  On an accelerator the
+idiomatic shape is a *batched* simulation: ``vmap`` lifts the fused step over
+a leading instance axis, XLA compiles one program whose elementwise work is
+B-fold wider (far better utilization than B launch-bound small runs), and
 every instance's full av_vels series comes back in one device round trip.
 
 Physics math is the shared ops/stencil_math.py; omega and the acceleration

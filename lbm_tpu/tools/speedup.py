@@ -41,7 +41,7 @@ def render_speedup(reports: list[dict], output: str) -> str:
     fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(12, 5))
     width = 0.38
     ax1.bar(x - width / 2, ref, width, label="reference best (80 cores, async MPI)")
-    ax1.bar(x + width / 2, ours, width, label="lbm_tpu (1 TPU chip)")
+    ax1.bar(x + width / 2, ours, width, label="lbm_tpu (1 device)")
     ax1.set_xticks(x, grids)
     ax1.set_ylabel("MLUPS")
     ax1.set_title("Throughput")
@@ -52,7 +52,7 @@ def render_speedup(reports: list[dict], output: str) -> str:
     ax2.axhline(1.0, color="k", lw=0.8, ls="--")
     ax2.set_xticks(x, grids)
     ax2.set_ylabel("speedup vs reference best")
-    ax2.set_title("Speedup vs. Grid Size (1 TPU chip / 80 CPU cores)")
+    ax2.set_title("Speedup vs. Grid Size (1 device / 80 CPU cores)")
     for xi, s in zip(x, speedup):
         ax2.text(xi, s, f"{s:.1f}x", ha="center", va="bottom")
     fig.tight_layout()

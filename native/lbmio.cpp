@@ -2,7 +2,7 @@
 //
 // The reference does all of its scene parsing and result dumping with C stdio
 // (SerialCode/d2q9-bgk.c:460-613 for input, 662-743 for output).  This library
-// is the TPU framework's native equivalent: a buffered obstacle parser and
+// is this framework's native equivalent: a buffered obstacle parser and
 // %.12E-formatted writers for final_state.dat / av_vels.dat, bound from
 // Python via ctypes (lbm_tpu/io/native.py).  Formatting matches the reference
 // byte-for-byte because both use printf %.12E.

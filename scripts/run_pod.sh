@@ -1,54 +1,24 @@
 #!/usr/bin/env bash
-# Multi-host TPU pod launch (the analog of the reference's 2-node x 40-rank
-# MPI SLURM script, MPI/job_submit_d2q9-bgk:4-6).
+# Multi-process dry run: validates the jax.distributed path locally with
+# 2 CPU processes x 4 virtual devices, sync discipline, bitwise vs
+# single-device (lbm_tpu/tools/dist_smoke.py) — the analog of the
+# reference's 2-node MPI job (MPI/job_submit_d2q9-bgk:4-6).
 #
-# Run this same script on every host of the pod slice (e.g. via
-# `gcloud compute tpus tpu-vm ssh --worker=all --command=...`).  JAX picks up
-# pod topology from the TPU runtime; jax.distributed.initialize() is called
-# by the runner below when more than one process participates.  The row mesh
-# then spans all chips in the slice and halo ppermutes ride ICI.
-#
-# Usage: scripts/run_pod.sh <input.params> <obstacles.dat> [extra run flags]
-#        scripts/run_pod.sh --dryrun   # 2-process local CPU validation
+# Usage: scripts/run_pod.sh --dryrun
 set -euo pipefail
 cd "$(dirname "$0")/.."
 source scripts/env.sh
 
-if [ "${1:-}" = "--dryrun" ]; then
-    # Validate the multi-process path locally: 2 CPU processes x 4 virtual
-    # devices, sync discipline, bitwise vs single-device (tools/dist_smoke).
-    PORT=$(( (RANDOM % 10000) + 20000 ))
-    python -m lbm_tpu.tools.dist_smoke --process-id 0 --num-processes 2 \
-        --coordinator "127.0.0.1:$PORT" &
-    P0=$!
-    python -m lbm_tpu.tools.dist_smoke --process-id 1 --num-processes 2 \
-        --coordinator "127.0.0.1:$PORT" &
-    P1=$!
-    wait $P0 && wait $P1
-    echo "pod dryrun: both processes passed"
-    exit 0
+if [ "${1:-}" != "--dryrun" ]; then
+    echo "usage: scripts/run_pod.sh --dryrun" >&2
+    exit 2
 fi
-
-PARAMS=${1:?usage: run_pod.sh <input.params> <obstacles.dat> [flags]}
-OBSTACLES=${2:?usage: run_pod.sh <input.params> <obstacles.dat> [flags]}
-shift 2
-
-make -s native
-python - "$PARAMS" "$OBSTACLES" "$@" <<'PY'
-import sys
-
-import jax
-
-try:
-    # No-op on single-process; wires up the pod when launched on all hosts.
-    jax.distributed.initialize()
-except Exception as e:  # single-host fallback
-    print(f"jax.distributed.initialize skipped: {e}")
-
-from lbm_tpu.cli import main
-
-argv = ["run", *sys.argv[1:]]
-if not any(a == "--variant" or a.startswith("--variant=") for a in argv):
-    argv += ["--variant", "async"]  # stale-halo mode: the headline distributed config
-sys.exit(main(argv))
-PY
+PORT=$(( (RANDOM % 10000) + 20000 ))
+python -m lbm_tpu.tools.dist_smoke --process-id 0 --num-processes 2 \
+    --coordinator "127.0.0.1:$PORT" &
+P0=$!
+python -m lbm_tpu.tools.dist_smoke --process-id 1 --num-processes 2 \
+    --coordinator "127.0.0.1:$PORT" &
+P1=$!
+wait $P0 && wait $P1
+echo "pod dryrun: both processes passed"

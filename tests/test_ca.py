@@ -1,18 +1,19 @@
 """Communication-avoiding exact mode (``--variant ca``).
 
-One K-deep raw halo exchange per K steps; the temporal slab sweep
-(ops/temporal_pallas.make_slab_sweep) recomputes boundary levels locally,
-so per-step results match the synchronous discipline exactly (bitwise on
-TPU; CPU interpret leaves ~1-ulp noise, hence the tiny atol here).
+One K-deep raw halo exchange per K steps, then K applications of the XLA
+slab step (ops/fused_jnp.fused_step_slab) on a slab that shrinks by one row
+per side per step: every owned cell goes through the same arithmetic as in
+the synchronous discipline, so fields match sync BITWISE; the av series sums
+the owned rows of each level in another grouping (rtol 1e-5).
 """
 
 import numpy as np
 import pytest
 
 import jax
-import jax.numpy as jnp
 
-from lbm_tpu.models.driver import RunConfig, run_simulation
+from lbm_tpu.io.scene import Scene
+from lbm_tpu.models.driver import RunConfig, _pick_variant, run_simulation
 from lbm_tpu.parallel import mesh as mesh_lib
 from lbm_tpu.parallel import modes
 from lbm_tpu.params import LBMParams
@@ -57,17 +58,39 @@ def test_ca_matches_sync(ca_scene, mesh4, K):
     assert ca.steps_per_call == K
     f_sync, tot_sync = _run(sync)
     f_ca, tot_ca = _run(ca)
-    np.testing.assert_allclose(f_ca, f_sync, atol=5e-7)
-    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-4)
+    np.testing.assert_array_equal(f_ca, f_sync)
+    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_ca_jnp_engine_bitwise_vs_sync(K, shards):
+    """The jnp ca engine over the K x shard-count matrix: 8-row shards at
+    8 devices hold exactly K=8 rows (the deepest exchange that maps), and
+    the driven row's shard changes with the count."""
+    ny, nx = 64, 24
+    params = LBMParams(
+        nx=nx, ny=ny, max_iters=3 * K, reynolds_dim=10,
+        density=0.1, accel=0.01, omega=1.85,
+    )
+    r = np.random.default_rng(100 * K + shards)
+    mask = r.random((ny, nx)) < 0.1
+    mask[0, :] = mask[-1, :] = True
+    mesh = mesh_lib.make_row_mesh(shards)
+    sync = modes.build_sharded_program(params, mask, mesh, mode="sync")
+    ca = modes.build_sharded_program(params, mask, mesh, mode="ca", staleness=K)
+    assert ca.steps_per_call == K and ca.backend == "jnp"
+    f_sync, tot_sync = _run(sync, 3 * K)
+    f_ca, tot_ca = _run(ca, 3 * K)
+    np.testing.assert_array_equal(f_ca, f_sync)
+    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-5)
 
 
 @pytest.mark.parametrize("K", [2, 4])
 def test_ca_matches_sync_open_seam(mesh4, K):
     """Regression: NO walls at rows 0 / ny-1, so the periodic wrap seam is
-    live fluid and shard 0's seam chain must apply the driven-row injection
-    (row ny-2 is always among its wrapped lo rows).  An unwrapped lo-row
-    base made ca silently diverge from sync here while every walled-scene
-    test passed."""
+    live fluid and shard 0's deep lower halo must apply the driven-row
+    injection (row ny-2 is always among its wrapped rows)."""
     params = LBMParams(
         nx=128, ny=32, max_iters=STEPS, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
@@ -81,11 +104,14 @@ def test_ca_matches_sync_open_seam(mesh4, K):
     )
     f_sync, tot_sync = _run(sync)
     f_ca, tot_ca = _run(ca)
-    np.testing.assert_allclose(f_ca, f_sync, atol=5e-7)
-    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-4)
+    np.testing.assert_array_equal(f_ca, f_sync)
+    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-5)
 
 
 def test_ca_i16(ca_scene, mesh4):
+    """i16 ca quantizes after every level, like sync-i16 after every step:
+    the two agree bitwise, and both sit in the quantization envelope of
+    the f32 run."""
     params, mask = ca_scene
     ca = modes.build_sharded_program(
         params, mask, mesh4, mode="ca", staleness=2, storage="i16"
@@ -93,83 +119,20 @@ def test_ca_i16(ca_scene, mesh4):
     assert ca.variant == "ca-2-i16"
     f, tots = _run(ca)
     assert np.all(np.isfinite(f)) and np.all(np.isfinite(tots))
-    # i16 quantization error only (once per sweep), vs the f32 sync run
-    sync = modes.build_sharded_program(params, mask, mesh4, mode="sync")
-    f_sync, _ = _run(sync)
-    assert np.abs(f - f_sync).max() < 1e-4
-
-
-def test_ca_inplace_i16(ca_scene, mesh4, monkeypatch):
-    """Round 5 (VERDICT r4 #2): the in-place ca engine's int16 codec.
-
-    Per-STEP quantization — the grid-level in-place i16 kernel's contract —
-    so the forced-inplace i16 ca run matches the sync-i16 discipline (one
-    quant step of CPU-interpret noise here; bitwise on TPU) and the f32
-    sync run within the documented quantization envelope."""
-    params, mask = ca_scene
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    ca = modes.build_sharded_program(
-        params, mask, mesh4, mode="ca", staleness=4, storage="i16"
-    )
-    assert ca.engine == "inplace"
-    assert ca.variant == "ca-4-i16"
-    f, tots = _run(ca)
-    assert np.all(np.isfinite(f)) and np.all(np.isfinite(tots))
-    monkeypatch.delenv("LBM_CA_ENGINE")
     sync16 = modes.build_sharded_program(
         params, mask, mesh4, mode="sync", storage="i16"
     )
     f_s16, _ = _run(sync16)
-    assert np.abs(f - f_s16).max() < 3e-6
+    np.testing.assert_array_equal(f, f_s16)
     sync = modes.build_sharded_program(params, mask, mesh4, mode="sync")
     f_sync, _ = _run(sync)
     assert np.abs(f - f_sync).max() < 1e-4
-    # Auto policy for i16 keeps the measured round-4 default (slab) where
-    # the slab sweep maps; in-place is the forced/coverage engine.
-    assert modes.ca_engine_choice(
-        params, 8, 128, 4, storage="i16", ny_global=32
-    ) == "slab"
-
-
-def test_ca_inplace_i16_split_parts(monkeypatch):
-    """Split sub-sweeps with the i16 codec: forced 2-way split over 16-row
-    shards agrees with the unsplit forced-inplace i16 run bitwise (same
-    kernels, same quantization points) and stays inside the envelope."""
-    params = LBMParams(
-        nx=128, ny=64, max_iters=8, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    r = np.random.default_rng(13)
-    mask = r.random((64, 128)) < 0.08
-    mask[0, :] = mask[-1, :] = True
-    mesh4 = mesh_lib.make_row_mesh(4)
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    whole = modes.build_sharded_program(
-        params, mask, mesh4, mode="ca", staleness=4, storage="i16"
-    )
-    monkeypatch.setenv("LBM_CA_PARTS", "2")
-    split = modes.build_sharded_program(
-        params, mask, mesh4, mode="ca", staleness=4, storage="i16"
-    )
-    f_w, tot_w = _run(whole, steps=8)
-    f_s, tot_s = _run(split, steps=8)
-    np.testing.assert_allclose(f_s, f_w, atol=3e-6)  # ulp->quant-step on CPU
-    np.testing.assert_allclose(tot_s, tot_w, rtol=1e-4)
-    # The parts-carried whole-run hook rides the same i16 sub-kernels.
-    assert split.make_run_all is not None
-    run_all = split.make_run_all(8)
-    st, tots_hook = jax.jit(run_all)(split.init_state)
-    np.testing.assert_array_equal(
-        np.asarray(split.f_of(st), np.float32), f_s
-    )
 
 
 def test_ca_arbitrary_step_count_runs_sync_tail(ca_scene):
     # --variant ca --steps 10 with K=4: 8 bulk steps + a 2-step exact sync
-    # tail, bitwise continuation of the run (VERDICT r2 #5).
+    # tail, bitwise continuation of the run.
     params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
     scene = Scene(params=params, obstacles=mask)
     res_ca = run_simulation(
         scene,
@@ -180,15 +143,13 @@ def test_ca_arbitrary_step_count_runs_sync_tail(ca_scene):
     )
     assert res_ca.variant == "ca-4+sync-tail2"
     assert res_ca.av_vels.shape == (10,)
-    np.testing.assert_allclose(res_ca.f, res_sync.f, atol=5e-7)
-    np.testing.assert_allclose(res_ca.av_vels, res_sync.av_vels, rtol=1e-4)
+    np.testing.assert_array_equal(res_ca.f, res_sync.f)
+    np.testing.assert_allclose(res_ca.av_vels, res_sync.av_vels, rtol=1e-5)
 
 
 def test_ca_steps_below_depth_run_pure_tail(ca_scene):
     # steps < K: no bulk sweeps at all, the whole run is the sync tail.
     params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
     scene = Scene(params=params, obstacles=mask)
     res = run_simulation(
         scene,
@@ -198,13 +159,11 @@ def test_ca_steps_below_depth_run_pure_tail(ca_scene):
         scene, RunConfig(variant="sync", num_devices=4, num_steps=3)
     )
     assert res.variant.endswith("+sync-tail3")
-    np.testing.assert_allclose(res.f, ref.f, atol=5e-7)
+    np.testing.assert_array_equal(res.f, ref.f)
 
 
 def test_chunked_arbitrary_step_count_runs_sync_tail(ca_scene):
     params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
     scene = Scene(params=params, obstacles=mask)
     res = run_simulation(
         scene,
@@ -216,16 +175,10 @@ def test_chunked_arbitrary_step_count_runs_sync_tail(ca_scene):
 
 
 def test_auto_prefers_ca_wherever_it_maps():
-    """Round-4 policy (scripts/exp_ca_engine.py head-to-head): the ca
-    K-sweep engines matched or beat the per-step slab kernel at every
-    measured shard shape, so the multi-device auto policy picks the exact
-    comm-avoiding discipline wherever it maps — cached regime included —
-    and falls back to the stale-fraction async/overlap rule only where it
-    cannot."""
-    from lbm_tpu.io.scene import Scene
-    from lbm_tpu.models.driver import _pick_variant
-
-    # 8192x2048 over 4 shards: 2048-row shards, ws = 2*9*2048*2048*4 = 302MB.
+    """The multi-device auto policy picks the exact comm-avoiding discipline
+    wherever it maps — every storage, with or without --debug (debug runs
+    decompose into the bitwise-identical sync schedule) — and falls back to
+    the stale-fraction async/overlap rule only where it cannot."""
     params = LBMParams(
         nx=2048, ny=8192, max_iters=4, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
@@ -234,41 +187,43 @@ def test_auto_prefers_ca_wherever_it_maps():
     mask[0, :] = mask[-1, :] = True
     scene = Scene(params=params, obstacles=mask)
     assert _pick_variant(scene, RunConfig(num_devices=4)) == "ca"
-
-    # Cached regime (128-row shards over 512 cols): ca maps -> ca since
-    # round 4 (it measured 13.2k vs the per-step kernel's 12.5k even at
-    # cached 128-row shards, and it is EXACT where async deviates).
     params_s = params.replace(ny=512, nx=512)
     mask_s = np.zeros((512, 512), dtype=bool)
     mask_s[0, :] = mask_s[-1, :] = True
     scene_s = Scene(params=params_s, obstacles=mask_s)
     assert _pick_variant(scene_s, RunConfig(num_devices=4)) == "ca"
-    # --debug + i16 cannot decompose the multi-step i16 ca program, so
-    # auto must not pick a configuration that raises.
-    picked = _pick_variant(
+    assert _pick_variant(
         scene_s, RunConfig(num_devices=4, storage="i16", debug=True)
+    ) == "ca"
+    # Open seam (ny not divisible, fluid seam rows): ca cannot map.
+    mask_o = np.zeros((510, 512), dtype=bool)
+    scene_o = Scene(params=params_s.replace(ny=510), obstacles=mask_o)
+    assert _pick_variant(scene_o, RunConfig(num_devices=4)) in (
+        "async", "overlap"
     )
-    assert picked in ("async", "overlap")
-    # Non-lane-aligned widths still map ca via clone-column padding; the
-    # genuine fallbacks (shards below the sweep minimum, --backend jnp)
-    # are covered by test_ca_supported_mirrors_build_gate,
-    # test_auto_with_jnp_backend_never_picks_ca, and the driver tests.
 
 
 def test_ca_supported_mirrors_build_gate(ca_scene, mesh4):
     params, mask = ca_scene
-    assert modes.ca_supported(params, mask, 4, staleness=2)
-    # 8 rows over 4 shards: below the sweep's block minimum -> both the
-    # predicate and the build reject.
-    tiny = params.replace(ny=8)
+    assert modes.ca_supported(mask, 4, staleness=2)
+    assert modes.ca_supported(mask, 4, staleness=8)  # 8-row shards, K=8
+    assert not modes.ca_supported(mask, 4, staleness=9)
     tiny_mask = np.zeros((8, 128), dtype=bool)
     tiny_mask[0, :] = tiny_mask[-1, :] = True
-    assert not modes.ca_supported(tiny, tiny_mask, 4, staleness=2)
+    # 2-row shards: K=2 maps, K=4 does not — predicate and build agree.
+    assert modes.ca_supported(tiny_mask, 4, staleness=2)
+    assert not modes.ca_supported(tiny_mask, 4, staleness=4)
+    tiny = params.replace(ny=8)
+    modes.build_sharded_program(tiny, tiny_mask, mesh4, mode="ca", staleness=2)
+    with pytest.raises(ValueError):
+        modes.build_sharded_program(
+            tiny, tiny_mask, mesh4, mode="ca", staleness=4
+        )
 
 
 def test_ca_label_reports_effective_depth(ca_scene, mesh4):
     # --staleness 1 still runs a ca_depth(1)=2 schedule; the label must say
-    # the depth actually executed (ADVICE r2).
+    # the depth actually executed.
     params, mask = ca_scene
     ca = modes.build_sharded_program(
         params, mask, mesh4, mode="ca", staleness=1
@@ -278,21 +233,19 @@ def test_ca_label_reports_effective_depth(ca_scene, mesh4):
 
 
 def test_ca_rejects_unmappable_shards(mesh4):
-    # 8 rows over 4 shards -> 2-row shards: below the sweep's block minimum.
+    # 8 rows over 4 shards -> 2-row shards: a 4-deep exchange cannot map.
     params = LBMParams(
         nx=128, ny=8, max_iters=4, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
     )
     mask = np.zeros((8, 128), dtype=bool)
     mask[0, :] = mask[-1, :] = True
-    with pytest.raises(ValueError, match="ca mode requires"):
-        modes.build_sharded_program(params, mask, mesh4, mode="ca", staleness=2)
+    with pytest.raises(ValueError, match="ca mode exchanges K=4 rows"):
+        modes.build_sharded_program(params, mask, mesh4, mode="ca", staleness=4)
 
 
 def test_ca_driver_end_to_end(ca_scene):
     params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
     scene = Scene(params=params, obstacles=mask)
     res_ca = run_simulation(
         scene, RunConfig(variant="ca", num_devices=4, staleness=4)
@@ -301,13 +254,13 @@ def test_ca_driver_end_to_end(ca_scene):
         scene, RunConfig(variant="sync", num_devices=4)
     )
     assert res_ca.variant == "ca-4"
-    np.testing.assert_allclose(res_ca.f, res_sync.f, atol=5e-7)
-    np.testing.assert_allclose(res_ca.av_vels, res_sync.av_vels, rtol=1e-4)
+    np.testing.assert_array_equal(res_ca.f, res_sync.f)
+    np.testing.assert_allclose(res_ca.av_vels, res_sync.av_vels, rtol=1e-5)
 
 
 def test_ca_lane_padded_grid(mesh4):
-    """ca on a non-lane-aligned width: the slab sweep runs in the padded
-    clone-column layout and still matches sync."""
+    """ca on a width that is no multiple of anything in particular: the XLA
+    slab step takes any width, and the run still matches sync."""
     params = LBMParams(
         nx=100, ny=32, max_iters=8, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
@@ -321,288 +274,123 @@ def test_ca_lane_padded_grid(mesh4):
     )
     f_sync, tot_sync = _run(sync, steps=8)
     f_ca, tot_ca = _run(ca, steps=8)
-    np.testing.assert_allclose(f_ca, f_sync, atol=5e-7)
-    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-4)
+    np.testing.assert_array_equal(f_ca, f_sync)
+    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-5)
 
 
-def test_ca_debug_runs_sync_decomposition(ca_scene, capsys):
-    """--debug with ca (previously rejected): per-step observables come from
-    the bitwise-identical sync schedule; av_vels match the plain ca run and
-    densities are printed for every step."""
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+def test_ca_debug_runs_sync_decomposition(ca_scene, capsys, storage):
+    """--debug with ca: per-step observables come from the bitwise-identical
+    sync schedule; av_vels match the plain ca run and densities are printed
+    for every step.  i16 too: ca-i16 quantizes after every level, exactly
+    like sync-i16."""
     params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
     scene = Scene(params=params, obstacles=mask)
     base = run_simulation(
         scene,
-        RunConfig(variant="ca", num_devices=4, staleness=4, num_steps=8),
+        RunConfig(variant="ca", num_devices=4, staleness=4, num_steps=8,
+                  storage=storage),
     )
     with pytest.warns(UserWarning, match="bitwise-identical sync schedule"):
         res = run_simulation(
             scene,
             RunConfig(
                 variant="ca", num_devices=4, staleness=4, num_steps=8,
-                debug=True,
+                debug=True, storage=storage,
             ),
         )
     out = capsys.readouterr().out
     assert out.count("==timestep:") == 8
     assert out.count("tot density:") == 8
     assert res.variant == "ca-4+debug-as-sync"
-    # CPU interpret leaves ~ulp noise between the slab sweep and the
-    # per-step path; on TPU they are bitwise.
-    np.testing.assert_allclose(res.f, base.f, atol=5e-7)
-    np.testing.assert_allclose(res.av_vels, base.av_vels, rtol=1e-4)
-
-
-def test_ca_debug_i16_rejected(ca_scene):
-    """i16 ca quantizes once per sweep, so the per-step sync decomposition
-    would trace a different trajectory — rejected with a pointed message."""
-    params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-
-    scene = Scene(params=params, obstacles=mask)
-    with pytest.raises(ValueError, match="quantizes once per sweep"):
-        run_simulation(
-            scene,
-            RunConfig(
-                variant="ca", num_devices=4, staleness=4, num_steps=8,
-                debug=True, storage="i16",
-            ),
-        )
+    np.testing.assert_array_equal(res.f, base.f)
+    np.testing.assert_allclose(res.av_vels, base.av_vels, rtol=1e-5)
 
 
 def test_plan_notes_ca_debug(ca_scene):
-    from lbm_tpu.io.scene import Scene
     from lbm_tpu.models.plan import describe_plan
 
     params, mask = ca_scene
     scene = Scene(params=params, obstacles=mask)
-    plan = describe_plan(scene, RunConfig(
-        variant="ca", num_devices=4, staleness=4, num_steps=8, debug=True,
-    ))
-    assert "bitwise-identical sync schedule" in plan
-    plan16 = describe_plan(scene, RunConfig(
-        variant="ca", num_devices=4, staleness=4, num_steps=8, debug=True,
-        storage="i16",
-    ))
-    assert "will FAIL" in plan16 and "i16" in plan16
+    for storage in ("f32", "i16"):
+        plan = describe_plan(scene, RunConfig(
+            variant="ca", num_devices=4, staleness=4, num_steps=8,
+            debug=True, storage=storage,
+        ))
+        assert "bitwise-identical sync schedule" in plan
+        assert "will FAIL" not in plan
 
 
-def test_auto_with_jnp_backend_never_picks_ca():
-    """An explicit --backend jnp rules ca out of the auto policy (ca needs
-    the temporal pallas slab sweep; picking it would fail the build)."""
-    from lbm_tpu.io.scene import Scene
-    from lbm_tpu.models.driver import _pick_variant, build_program
+def test_auto_with_jnp_backend_picks_ca():
+    """ca always runs the XLA step, so an explicit --backend jnp keeps it
+    in the auto policy, and the pick builds."""
+    from lbm_tpu.models.driver import build_program
 
     params = LBMParams(
-        nx=2048, ny=8192, max_iters=4, reynolds_dim=10,
+        nx=64, ny=64, max_iters=4, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
     )
-    mask = np.zeros((8192, 2048), dtype=bool)
+    mask = np.zeros((64, 64), dtype=bool)
     mask[0, :] = mask[-1, :] = True
     scene = Scene(params=params, obstacles=mask)
-    # Same DRAM-bound scene that auto-picks ca with the default backend...
-    assert _pick_variant(scene, RunConfig(num_devices=4)) == "ca"
-    # ...must fall back to a jnp-buildable discipline with --backend jnp.
     cfg = RunConfig(num_devices=4, backend="jnp")
-    picked = _pick_variant(scene, cfg)
-    assert picked in ("async", "overlap")
-    # And the pick must actually build (this raised before the fix).
+    assert _pick_variant(scene, cfg) == "ca"
     prog = build_program(scene, cfg)
-    assert prog.backend == "jnp"
+    assert prog.backend == "jnp" and prog.variant == "ca-4"
 
 
-def test_frames_i16_ca_rejected(ca_scene):
-    """i16 ca frame capture would advance through per-step-quantized sync
-    steps — a different trajectory than the plain run; rejected, and the
-    plan predicts the failure."""
-    params, mask = ca_scene
-    from lbm_tpu.io.scene import Scene
-    from lbm_tpu.models.plan import describe_plan
-
-    scene = Scene(params=params, obstacles=mask)
-    cfg = RunConfig(
-        variant="ca", num_devices=4, staleness=4, num_steps=8,
-        storage="i16", frame_interval=4,
-    )
-    with pytest.raises(ValueError, match="i16 ca"):
-        run_simulation(scene, cfg)
-    plan = describe_plan(scene, cfg)
-    assert "will FAIL" in plan and "f32 storage" in plan
-
-
-def test_auto_i16_frames_never_picks_ca(ca_scene):
-    """ADVICE r4 (medium): auto picked ca for multi-device i16 runs with
-    --frame-interval, then run_simulation raised ('--frame-interval with
-    i16 ca is not supported').  Auto must never select a configuration
-    that raises — it falls back to the stale-fraction rule instead."""
-    from lbm_tpu.io.scene import Scene
-    from lbm_tpu.models.driver import _pick_variant
-
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+def test_ca_frames_match_plain_run(ca_scene, storage):
+    """Frame capture on ca advances through the ca step and sync
+    micro-steps for segments that are not whole sweeps; both storages
+    reproduce the plain run's fields bitwise."""
     params, mask = ca_scene
     scene = Scene(params=params, obstacles=mask)
-    # The same scene auto-picks ca without frames...
-    assert _pick_variant(scene, RunConfig(num_devices=4, storage="i16")) == "ca"
+    cfg = dict(variant="ca", num_devices=4, staleness=4, num_steps=10,
+               storage=storage)
+    plain = run_simulation(scene, RunConfig(**cfg))
+    framed = run_simulation(scene, RunConfig(**cfg, frame_interval=3))
+    assert framed.frames.shape == (4, 32, 128)
+    np.testing.assert_array_equal(framed.f, plain.f)
+    np.testing.assert_allclose(framed.av_vels, plain.av_vels, rtol=1e-5)
+
+
+def test_auto_i16_frames_picks_ca(ca_scene):
+    """Multi-device i16 runs with --frame-interval: auto picks ca (i16 ca
+    decomposes per step exactly) and the run succeeds end-to-end."""
+    params, mask = ca_scene
+    scene = Scene(params=params, obstacles=mask)
     cfg = RunConfig(
         num_devices=4, storage="i16", frame_interval=4, num_steps=8
     )
-    picked = _pick_variant(scene, cfg)
-    assert picked in ("async", "overlap")
-    # ...and the frames run itself must now succeed end-to-end.
+    assert _pick_variant(scene, cfg) == "ca"
     res = run_simulation(scene, cfg)
     assert res.frames is not None and res.frames.shape[0] == 2
     assert np.all(np.isfinite(res.av_vels))
 
 
-def test_ca_engine_choice_uses_padded_ny(monkeypatch):
-    """ADVICE r4 (low): the in-place engine's ext<=ny one-hot gate must be
-    evaluated against the row-PADDED global row count the build actually
-    constructs the runner with — the unpadded params.ny rejected the engine
-    on walled row-padded grids where it maps."""
+def test_ca_walled_row_padding_matches_sync():
+    """15 walled rows over 2 shards pad to 16 (blocked padding rows): ca
+    maps on the padded grid and matches sync."""
     params = LBMParams(
         nx=128, ny=15, max_iters=8, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
     )
     mask = np.zeros((15, 128), dtype=bool)
     mask[0, :] = mask[-1, :] = True  # walled seam: blocked row padding
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    # 15 rows over 2 shards pads to 16 -> 8-row shards; ext = 8 + 2*4 = 16.
-    # Against the unpadded ny the one-hot gate sees ext > 15 and rejects...
-    assert modes.ca_engine_choice(params, 8, 128, 4) is None
-    # ...but the build runs the padded 16-row grid, where the engine maps.
-    assert modes.ca_engine_choice(params, 8, 128, 4, ny_global=16) == "inplace"
-    assert modes.ca_supported(params, mask, 2, staleness=4)
+    assert modes.ca_supported(mask, 2, staleness=4)
     mesh2 = mesh_lib.make_row_mesh(2)
     ca = modes.build_sharded_program(params, mask, mesh2, mode="ca", staleness=4)
-    assert ca.engine == "inplace"
     sync = modes.build_sharded_program(params, mask, mesh2, mode="sync")
     f_ca, tot_ca = _run(ca, steps=8)
     f_sync, tot_sync = _run(sync, steps=8)
-    np.testing.assert_allclose(f_ca, f_sync, atol=5e-7)
-    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-4)
-
-
-def test_ca_resident_engine_matches_slab_sweep(ca_scene):
-    """The two ca K-sweep engines — the VMEM-resident extended-slab kernel
-    (round 4) and the streaming temporal slab sweep — are interchangeable:
-    identical ghost inputs must give identical fields (1-ulp on CPU
-    interpret) and matching per-step |u| partials (float-sum grouping
-    differs)."""
-    from lbm_tpu.ops import resident_pallas, temporal_pallas
-
-    params, mask = ca_scene
-    ny, nx = mask.shape
-    nloc, K = 16, 4
-    assert resident_pallas.supports_ca_shard(nloc, nx, K)
-    res = resident_pallas.make_ca_chunk_runner(
-        params, nloc, nx, K, ny_global=ny, interpret=True
-    )
-    slab = temporal_pallas.make_slab_sweep(
-        params, nloc, nx, K, interpret=True, ny_global=ny
-    )
-    # Shard 1 of 2 (rows 16..31): its hi ghosts wrap to the global top rows,
-    # so the driven row (ny-2=30) sits inside the shard body and the wrap
-    # indices both engines compute must agree.
-    from lbm_tpu.core import lattice
-
-    f_full = np.asarray(
-        lattice.equilibrium_rest(params.density, ny, nx), np.float32
-    )
-    r = np.random.default_rng(7)
-    f_full *= 1.0 + 0.01 * r.random(f_full.shape, dtype=np.float32)
-    for off in (0, 16):
-        rows = lambda a, b: np.arange(a, b) % ny
-        f = jnp.asarray(f_full[:, rows(off, off + nloc)])
-        lo = jnp.asarray(f_full[:, rows(off - K, off)])
-        hi = jnp.asarray(f_full[:, rows(off + nloc, off + nloc + K)])
-        obst_ext = jnp.asarray(
-            mask[rows(off - K, off + nloc + K)].astype(np.float32)
-        )
-        f_res, av_res = res(f, lo, hi, obst_ext, off)
-        f_slab, av_slab = slab(f, lo, hi, obst_ext, off)
-        np.testing.assert_allclose(
-            np.asarray(f_res), np.asarray(f_slab), atol=5e-7
-        )
-        np.testing.assert_allclose(
-            np.asarray(av_res), np.asarray(av_slab), rtol=1e-5
-        )
-
-
-@pytest.mark.parametrize("ny,nloc,K", [(32, 16, 4), (64, 16, 8), (128, 24, 4)])
-def test_ca_inplace_engine_matches_monolithic(ny, nloc, K):
-    """The in-place blocked ca engine (single-buffer, dynamic driven-row
-    injection) is bitwise-equal to the monolithic extended-slab kernel on
-    FIELDS for every shard offset — driven row in the shard body, in the
-    wrapped ghosts, and absent from the slab entirely — and its
-    central-row-masked av partials match the monolithic whole-slab sums
-    exactly on these sizes."""
-    from lbm_tpu.core import lattice
-    from lbm_tpu.ops import resident_pallas
-
-    nx = 256
-    params = LBMParams(
-        nx=nx, ny=ny, max_iters=STEPS, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    r = np.random.default_rng(3)
-    mask = r.random((ny, nx)) < 0.08
-    mask[0, :] = mask[-1, :] = True
-    assert resident_pallas.supports_ca_inplace(nloc, nx, K, ny)
-    mono = resident_pallas.make_ca_chunk_runner(
-        params, nloc, nx, K, ny_global=ny, interpret=True
-    )
-    inp = resident_pallas.make_ca_inplace_runner(
-        params, nloc, nx, K, ny_global=ny, interpret=True
-    )
-    f_full = np.asarray(
-        lattice.equilibrium_rest(params.density, ny, nx), np.float32
-    )
-    f_full *= 1.0 + 0.01 * r.random(f_full.shape, dtype=np.float32)
-    for off in (0, nloc, 2 * nloc):
-        rows = lambda a, b: np.arange(a, b) % ny
-        f = jnp.asarray(f_full[:, rows(off, off + nloc)])
-        lo = jnp.asarray(f_full[:, rows(off - K, off)])
-        hi = jnp.asarray(f_full[:, rows(off + nloc, off + nloc + K)])
-        obst_ext = jnp.asarray(
-            mask[rows(off - K, off + nloc + K)].astype(np.float32)
-        )
-        f_m, av_m = mono(f, lo, hi, obst_ext, off)
-        f_i, av_i = inp(f, lo, hi, obst_ext, off)
-        assert np.array_equal(np.asarray(f_m), np.asarray(f_i)), off
-        np.testing.assert_allclose(
-            np.asarray(av_m), np.asarray(av_i), rtol=1e-6
-        )
-
-
-def test_ca_default_staleness_shape_aware():
-    """No --staleness: ca defaults to K=8 at shards >= 96 rows (measured
-    faster at every such shape, half the collectives) and stays at the
-    K=4 table default below, or when the K=8 build cannot map."""
-    params = LBMParams(
-        nx=128, ny=192, max_iters=8, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    mask = np.zeros((192, 128), dtype=bool)
-    mask[0, :] = mask[-1, :] = True
-    assert modes.ca_default_staleness(params, mask, 2) == 8  # 96-row shards
-    assert modes.ca_default_staleness(params, mask, 4) == 4  # 48-row shards
-    # >= 96 rows but K=8 unmappable (ext % 8 != 0 via nloc=100) -> 4.
-    params_odd = LBMParams(
-        nx=128, ny=200, max_iters=8, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    mask_odd = np.zeros((200, 128), dtype=bool)
-    mask_odd[0, :] = mask_odd[-1, :] = True
-    stal = modes.ca_default_staleness(params_odd, mask_odd, 2)
-    assert stal == 8 if modes.ca_supported(params_odd, mask_odd, 2, 8) else 4
+    np.testing.assert_array_equal(f_ca, f_sync)
+    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-5)
 
 
 def test_ca_default_depth_in_run_label():
-    """run_simulation without --staleness carries the shape-aware default
-    into the variant label (and the run still matches sync bitwise)."""
-    from lbm_tpu.io.scene import Scene
-
+    """run_simulation without --staleness runs the K=4 default and carries
+    it into the variant label (and the run still matches sync bitwise)."""
     params = LBMParams(
         nx=128, ny=192, max_iters=8, reynolds_dim=10,
         density=0.1, accel=0.005, omega=1.85,
@@ -613,227 +401,28 @@ def test_ca_default_depth_in_run_label():
     res = run_simulation(
         scene, RunConfig(variant="ca", num_devices=2, num_steps=8)
     )
-    assert res.variant == "ca-8"
+    assert res.variant == "ca-4"
     res_sync = run_simulation(
         scene, RunConfig(variant="sync", num_devices=2, num_steps=8)
     )
-    np.testing.assert_allclose(res.f, res_sync.f, atol=5e-7)
+    np.testing.assert_array_equal(res.f, res_sync.f)
 
 
-@pytest.mark.parametrize("parts", [2, 4])
-def test_ca_inplace_split_bitwise(parts):
-    """Intra-shard splitting (the ca trick applied WITHIN the chip: each
-    sub-slab reads K-deep ghosts from the neighboring sub-slab's pre-sweep
-    state and recomputes its boundary evolution) leaves FIELDS bitwise-
-    identical to the unsplit sweep at every shard offset; av partials sum
-    in part order (the documented ~1-ulp float-sum grouping contract)."""
-    from lbm_tpu.core import lattice
-    from lbm_tpu.ops import resident_pallas
-
-    ny, nloc, K, nx = 192, 64, 8, 256
-    params = LBMParams(
-        nx=nx, ny=ny, max_iters=STEPS, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    r = np.random.default_rng(17)
-    mask = r.random((ny, nx)) < 0.08
-    mask[0, :] = mask[-1, :] = True
-    f_full = np.asarray(
-        lattice.equilibrium_rest(params.density, ny, nx), np.float32
-    )
-    f_full *= 1.0 + 0.01 * r.random(f_full.shape, dtype=np.float32)
-    whole = resident_pallas.make_ca_inplace_runner(
-        params, nloc, nx, K, ny_global=ny, interpret=True, parts=1
-    )
-    split = resident_pallas.make_ca_inplace_runner(
-        params, nloc, nx, K, ny_global=ny, interpret=True, parts=parts
-    )
-    for off in (0, nloc, 2 * nloc):
-        rows = lambda a, b: np.arange(a, b) % ny
-        f = jnp.asarray(f_full[:, rows(off, off + nloc)])
-        lo = jnp.asarray(f_full[:, rows(off - K, off)])
-        hi = jnp.asarray(f_full[:, rows(off + nloc, off + nloc + K)])
-        obst_ext = jnp.asarray(
-            mask[rows(off - K, off + nloc + K)].astype(np.float32)
-        )
-        f_w, av_w = whole(f, lo, hi, obst_ext, off)
-        f_s, av_s = split(f, lo, hi, obst_ext, off)
-        assert np.array_equal(np.asarray(f_w), np.asarray(f_s)), off
-        np.testing.assert_allclose(
-            np.asarray(av_w), np.asarray(av_s), rtol=1e-6
-        )
-
-
-def test_ca_inplace_parts_planner():
-    """The split planner returns 1 where the whole shard fits, the
-    smallest fitting split where it does not, and None where no split
-    maps (e.g. K > nloc for every divisor)."""
-    from lbm_tpu.ops import resident_pallas as rp
-
-    assert rp.ca_inplace_parts(64, 256, 8, 192) == 1
-    # 1024x2048 f32 needs ~85 MiB whole (past the 48 MiB band) but halves
-    # map at 48 — the shard class that motivated the split.
-    assert rp.ca_inplace_parts(1024, 2048, 8, 8192) == 2
-    # 4096-lane shards: no monolithic engine holds them; splits do.
-    assert rp.ca_inplace_parts(512, 4096, 8, 8192) == 2
-    assert rp.ca_inplace_parts(2048, 4096, 8, 8192) == 8
-    assert rp.ca_inplace_parts(8, 256, 16, 512) is None  # nloc < K
-
-
-def _tall_ca_scene():
-    # 16-row shards over 4 devices: splittable into two 8-row sub-slabs.
-    params = LBMParams(
-        nx=128, ny=64, max_iters=STEPS, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    r = np.random.default_rng(23)
-    mask = r.random((64, 128)) < 0.08
-    mask[0, :] = mask[-1, :] = True
-    return params, mask
-
-
-def test_ca_parts_carried_run_all(mesh4, monkeypatch):
-    """Split in-place ca exposes the parts-carried whole-run hook (state
-    stays as per-part arrays across the scan; split/join once per call):
-    the hook's trajectory is bitwise-equal to the per-step split step()
-    on fields and exact on the av series, and it declines step counts
-    that are not sweep multiples."""
-    params, mask = _tall_ca_scene()
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    monkeypatch.setenv("LBM_CA_PARTS", "2")
-    prog = modes.build_sharded_program(
-        params, mask, mesh4, mode="ca", staleness=4
-    )
-    assert prog.engine == "inplace"
-    assert prog.make_run_all is not None
-    assert prog.make_run_all(10) is None  # not a sweep multiple
-    run_all = prog.make_run_all(8)
-    f_fast, tots_fast = jax.jit(run_all)(prog.init_state)
-    state = prog.init_state
-    tots = []
-    step = jax.jit(prog.step)
-    for _ in range(2):
-        state, t = step(state)
-        tots.append(np.asarray(t))
-    assert np.array_equal(np.asarray(f_fast), np.asarray(state))
-    np.testing.assert_array_equal(
-        np.asarray(tots_fast), np.concatenate(tots)
-    )
-
-
-def test_ca_parts_carried_full_run_matches_sync(monkeypatch):
-    """run_simulation over the forced 2-part in-place engine (driver picks
-    the parts-carried hook for sweep-multiple runs) reproduces sync
-    bitwise, including a NON-multiple step count via the sync tail."""
-    from lbm_tpu.io.scene import Scene
-
-    params, mask = _tall_ca_scene()
-    scene = Scene(params=params, obstacles=mask)
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    monkeypatch.setenv("LBM_CA_PARTS", "2")
-    res_ca = run_simulation(
-        scene, RunConfig(variant="ca", num_devices=4, staleness=4,
-                         num_steps=10),
-    )
-    monkeypatch.delenv("LBM_CA_ENGINE")
-    monkeypatch.delenv("LBM_CA_PARTS")
-    res_sync = run_simulation(
-        scene, RunConfig(variant="sync", num_devices=4, num_steps=10)
-    )
-    assert res_ca.variant == "ca-4+sync-tail2"
-    np.testing.assert_allclose(res_ca.f, res_sync.f, atol=5e-7)
-    np.testing.assert_allclose(
-        res_ca.av_vels, res_sync.av_vels, rtol=1e-4
-    )
-
-
-def test_ca_inplace_i8_mask_bitwise():
-    """The capacity-edge int8 obstacle encoding (forced via mask_i8=True —
-    auto engages it only on 1024x2048-class shards whose f32 mask misses
-    the 88 MiB cap) leaves FIELDS and av partials bitwise-identical to the
-    f32-mask build: the kernel compares masks through an f32 convert, so
-    the encoding never touches the arithmetic."""
-    from lbm_tpu.core import lattice
-    from lbm_tpu.ops import resident_pallas
-
-    ny, nloc, K, nx = 64, 16, 8, 256
-    params = LBMParams(
-        nx=nx, ny=ny, max_iters=STEPS, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    r = np.random.default_rng(11)
-    mask = r.random((ny, nx)) < 0.08
-    mask[0, :] = mask[-1, :] = True
-    f_full = np.asarray(
-        lattice.equilibrium_rest(params.density, ny, nx), np.float32
-    )
-    f_full *= 1.0 + 0.01 * r.random(f_full.shape, dtype=np.float32)
-    runners = [
-        resident_pallas.make_ca_inplace_runner(
-            params, nloc, nx, K, ny_global=ny, interpret=True, mask_i8=m
-        )
-        for m in (False, True)
-    ]
-    for off in (0, nloc):
-        rows = lambda a, b: np.arange(a, b) % ny
-        f = jnp.asarray(f_full[:, rows(off, off + nloc)])
-        lo = jnp.asarray(f_full[:, rows(off - K, off)])
-        hi = jnp.asarray(f_full[:, rows(off + nloc, off + nloc + K)])
-        obst_ext = jnp.asarray(
-            mask[rows(off - K, off + nloc + K)].astype(np.float32)
-        )
-        (f_f32, av_f32), (f_i8, av_i8) = (
-            run(f, lo, hi, obst_ext, off) for run in runners
-        )
-        assert np.array_equal(np.asarray(f_f32), np.asarray(f_i8)), off
-        assert np.array_equal(np.asarray(av_f32), np.asarray(av_i8)), off
-
-
-def test_ca_inplace_mode_matches_sync(ca_scene, mesh4, monkeypatch):
-    """Forced in-place engine: the full ca discipline over the 4-device mesh
-    reproduces sync (the same contract the other two engines certify)."""
-    params, mask = ca_scene
-    sync = modes.build_sharded_program(params, mask, mesh4, mode="sync")
-    monkeypatch.setenv("LBM_CA_ENGINE", "inplace")
-    ca = modes.build_sharded_program(
-        params, mask, mesh4, mode="ca", staleness=4
-    )
-    assert ca.engine == "inplace"
-    f_sync, tot_sync = _run(sync)
-    f_ca, tot_ca = _run(ca)
-    np.testing.assert_allclose(f_ca, f_sync, atol=5e-7)
-    np.testing.assert_allclose(tot_ca, tot_sync, rtol=1e-4)
-
-
-def test_plan_names_ca_engine(ca_scene, monkeypatch):
-    from lbm_tpu.io.scene import Scene
+def test_plan_names_ca_engine(ca_scene):
     from lbm_tpu.models.plan import describe_plan
 
     params, mask = ca_scene
     scene = Scene(params=params, obstacles=mask)
-    # Auto picks per the measured win boxes (modes.ca_engine_choice):
-    # these 8-row x 128-lane shards sit inside the resident-win box
-    # (narrow shards <= 112 rows).
-    monkeypatch.delenv("LBM_CA_ENGINE", raising=False)
     plan = describe_plan(scene, RunConfig(
         variant="ca", num_devices=4, staleness=4, num_steps=8,
     ))
-    assert "ca engine: VMEM-resident extended-slab sweep" in plan
-    assert "evidence:" in plan  # discipline-ordering provenance caveat
-    # LBM_CA_ENGINE forces the slab sweep (the measured winner at wide or
-    # >112-row shards) — the plan mirrors the forced routing.
-    monkeypatch.setenv("LBM_CA_ENGINE", "slab")
+    assert "ca: 4 steps per exchange on a slab shrinking from 8+2x4" in plan
+    assert "per-shard step: XLA-fused step" in plan
+    # A depth deeper than the shards predicts failure.
     plan2 = describe_plan(scene, RunConfig(
-        variant="ca", num_devices=4, staleness=4, num_steps=8,
+        variant="ca", num_devices=4, staleness=9, num_steps=9,
     ))
-    assert "ca engine: streaming temporal slab sweep" in plan2
-    # Forcing an engine that cannot map (resident needs ext-row alignment
-    # that K=2 breaks) predicts failure instead of silently rerouting.
-    monkeypatch.setenv("LBM_CA_ENGINE", "resident")
-    plan3 = describe_plan(scene, RunConfig(
-        variant="ca", num_devices=4, staleness=2, num_steps=8,
-    ))
-    assert "will FAIL" in plan3
+    assert "will FAIL" in plan2
 
 
 def test_build_init_false_skips_init_state(ca_scene, mesh4):

@@ -113,7 +113,7 @@ def test_checkpoint_and_resume_i16(tmp_path):
     mask = np.zeros((16, 128), dtype=bool)
     mask[0, :] = mask[-1, :] = True
     sc = Scene(params=params, obstacles=mask)
-    cfg = dict(variant="pallas", storage="i16", temporal_k=1)
+    cfg = dict(variant="jnp", storage="i16")
     ref = run_simulation(sc, RunConfig(**cfg))
 
     ckdir = tmp_path / "ck"

@@ -111,7 +111,7 @@ def test_run_plan_flag(tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "variant: pallas" in out
-    assert "kernel:" in out
+    assert "path: Triton block kernel" in out
 
     rc = main(
         ["run", str(tmp_path / "input_p.params"),

@@ -121,28 +121,30 @@ def _kernel_scene(ny, nx, steps, seed=31):
     return Scene(params=params, obstacles=mask)
 
 
-def test_frames_ride_resident_fast_path():
-    """Frame capture must NOT bypass the whole-run kernel (VERDICT r2 #1):
-    frames from the resident fast path match the per-step jnp path at the
-    same steps (CPU interpret leaves ~ulp noise)."""
+def test_frames_on_block_kernel():
+    """Frame capture through the block kernel (Pallas interpreter): frames,
+    fields and av_vels match the per-step XLA path at the same steps (the
+    interpreter and XLA's CPU fusion may round differently in the last
+    bit)."""
     sc = _kernel_scene(32, 128, steps=25)
     ref = run_simulation(sc, RunConfig(variant="jnp", frame_interval=10))
-    res = run_simulation(sc, RunConfig(variant="pallas", frame_interval=10))
-    assert res.variant == "pallas-resident"
+    res = run_simulation(
+        sc, RunConfig(variant="pallas", frame_interval=10, interpret=True)
+    )
+    assert res.variant == "pallas"
     np.testing.assert_array_equal(res.frame_steps, ref.frame_steps)
     np.testing.assert_allclose(res.frames, ref.frames, atol=5e-7)
     np.testing.assert_allclose(res.av_vels, ref.av_vels, rtol=1e-4)
     np.testing.assert_allclose(res.f, ref.f, atol=5e-7)
 
 
-def test_frames_ride_temporal_fast_path():
-    """Lane-padded grids use the temporal K-sweep as their whole-run path;
-    an interval that is not a multiple of K exercises the sweep+remainder
-    advance inside the capture scan."""
+def test_frames_on_block_kernel_any_width():
+    """A width that is no power of two (masked tail tiles) and an interval
+    that does not divide the run: the capture scan's partial last segment."""
     sc = _kernel_scene(32, 100, steps=23)
     ref = run_simulation(sc, RunConfig(variant="jnp", frame_interval=7))
     res = run_simulation(
-        sc, RunConfig(variant="pallas", temporal_k=2, frame_interval=7)
+        sc, RunConfig(variant="pallas", frame_interval=7, interpret=True)
     )
     np.testing.assert_array_equal(res.frame_steps, ref.frame_steps)
     np.testing.assert_allclose(res.frames, ref.frames, atol=5e-7)
@@ -169,14 +171,16 @@ def test_frames_on_ca_variant():
     np.testing.assert_allclose(res.av_vels, ref.av_vels, rtol=1e-4)
 
 
-def test_frames_i16_storage():
+@pytest.mark.parametrize("variant", ["jnp", "pallas"])
+def test_frames_i16_storage(variant):
     sc = _kernel_scene(32, 128, steps=20)
     ref = run_simulation(sc, RunConfig(variant="jnp", frame_interval=10))
-    with pytest.warns(UserWarning):  # i16 on a resident-capable grid advises
-        res = run_simulation(
-            sc,
-            RunConfig(variant="pallas", storage="i16", frame_interval=10),
-        )
+    res = run_simulation(
+        sc,
+        RunConfig(variant=variant, storage="i16", frame_interval=10,
+                  interpret=True),
+    )
+    assert res.variant == f"{variant}-i16"
     np.testing.assert_allclose(res.frames, ref.frames, atol=1e-3)
 
 
@@ -235,24 +239,18 @@ def test_frames_on_chunked_variant():
 
 
 def test_frames_chunked_pallas_and_i16():
-    """Chunked frames under the pallas slab backend (whose no-frames step
-    may run the whole chunk in the VMEM-resident ghosted kernel) and under
-    i16 storage: the primitive-decomposed frames run must still reproduce
-    the no-frames run exactly."""
+    """Chunked frames under the block kernel's slab form (Pallas
+    interpreter) and under i16 storage: the primitive-decomposed frames run
+    must still reproduce the no-frames run exactly."""
     sc = _kernel_scene(64, 128, steps=16)
     with pytest.warns(UserWarning):  # high stale-row exposure advisory
-        base = run_simulation(sc, RunConfig(
-            variant="chunked", num_devices=4, staleness=2,
-        ))
-        res = run_simulation(sc, RunConfig(
-            variant="chunked", num_devices=4, staleness=2, frame_interval=8,
-        ))
-        base16 = run_simulation(sc, RunConfig(
-            variant="chunked", num_devices=4, staleness=2, storage="i16",
-        ))
+        kw = dict(variant="chunked", num_devices=4, staleness=2,
+                  backend="pallas", interpret=True)
+        base = run_simulation(sc, RunConfig(**kw))
+        res = run_simulation(sc, RunConfig(**kw, frame_interval=8))
+        base16 = run_simulation(sc, RunConfig(**kw, storage="i16"))
         res16 = run_simulation(sc, RunConfig(
-            variant="chunked", num_devices=4, staleness=2, storage="i16",
-            frame_interval=8,
+            **kw, storage="i16", frame_interval=8,
         ))
     np.testing.assert_array_equal(res.f, base.f)
     np.testing.assert_array_equal(res.av_vels, base.av_vels)
@@ -399,37 +397,42 @@ def test_resumed_mlups_counts_only_new_steps(scene, tmp_path):
 
 
 def test_auto_uses_mesh_when_multi_device(small_params, small_obstacles):
-    """VERDICT r1 #4 + round-4 revision: auto on a multi-device host picks
-    a sharded variant — the exact comm-avoiding discipline wherever its
-    K-sweep engines map (measured at-or-above the per-step kernel at every
-    shard shape, scripts/exp_ca_engine.py), else async when the
+    """Auto on a multi-device host picks a sharded variant — the exact
+    comm-avoiding discipline wherever it maps, else async when the
     stale-fraction model keeps deviation well inside the 1% contract, the
     bitwise-exact overlap discipline otherwise."""
     from lbm_tpu.io.scene import Scene
     from lbm_tpu.models.driver import _pick_variant
 
-    # 16 rows over 8 devices: 2-row shards are below the ca sweep minimum,
+    # 16 rows over 8 devices: 2-row shards cannot hold a 4-deep exchange,
     # and 100% stale-row exposure rules async out -> exact overlap.
     scene = Scene(params=small_params, obstacles=small_obstacles)
     assert _pick_variant(scene, RunConfig()) == "overlap"
-    # 2048 rows over 8 devices: ca maps (clone-column padding covers the
-    # 16-lane width) -> the exact amortized discipline since round 4.
+    # 2048 rows over 8 devices: ca maps at any width -> the exact
+    # amortized discipline, whatever the per-step backend.
     big = small_params.replace(ny=2048, nx=16)
     scene_big = Scene(
         params=big, obstacles=np.zeros((2048, 16), dtype=bool)
     )
     assert _pick_variant(scene_big, RunConfig()) == "ca"
-    # With ca ruled out (--backend jnp), the stale-fraction rule applies:
-    # 0.8% exposure (~0.1% deviation) -> async.
-    assert _pick_variant(scene_big, RunConfig(backend="jnp")) == "async"
-    # Explicit single device keeps the single-chip policy (16x16 fits the
-    # VMEM-resident kernel, so the pallas path is chosen).
-    assert _pick_variant(scene, RunConfig(num_devices=1)) == "pallas"
+    assert _pick_variant(scene_big, RunConfig(backend="jnp")) == "ca"
+    # Open seam (2047 rows: padding with fluid seam rows): ca cannot map;
+    # ~0.8% exposure (~0.1% deviation) -> async.
+    odd = Scene(
+        params=big.replace(ny=2047), obstacles=np.zeros((2047, 16), dtype=bool)
+    )
+    assert _pick_variant(odd, RunConfig()) == "async"
+    # Explicit single device keeps the single-device policy: the XLA step
+    # on a CPU.
+    assert _pick_variant(scene, RunConfig(num_devices=1)) == "jnp"
 
 
-def test_sharded_backend_defaults_to_pallas():
-    """VERDICT r1 #4: sharded modes pick the Pallas slab kernel by default
-    whenever it can map the layout."""
+@pytest.mark.parametrize("mode", ["sync", "ca"])
+def test_sharded_backend_defaults_by_platform(monkeypatch, mode):
+    """Sharded modes take the auto backend: the XLA step on a CPU, the
+    block kernel on a GPU (the platform is all the policy reads)."""
+    import jax
+
     from lbm_tpu.params import LBMParams
     from lbm_tpu.parallel import mesh as mesh_lib
     from lbm_tpu.parallel import modes
@@ -439,7 +442,12 @@ def test_sharded_backend_defaults_to_pallas():
     mask = np.zeros((32, 128), dtype=bool)
     mask[0, :] = mask[-1, :] = True
     prog = modes.build_sharded_program(
-        params, mask, mesh_lib.make_row_mesh(2), mode="sync"
+        params, mask, mesh_lib.make_row_mesh(2), mode=mode
+    )
+    assert prog.backend == "jnp"
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    prog = modes.build_sharded_program(
+        params, mask, mesh_lib.make_row_mesh(2), mode=mode
     )
     assert prog.backend == "pallas"
     forced = modes.build_sharded_program(

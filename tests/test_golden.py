@@ -9,10 +9,6 @@ checks are marked slow.
 import numpy as np
 import pytest
 
-import jax
-import jax.numpy as jnp
-
-from lbm_tpu.core import lattice
 from lbm_tpu.io import load_scene
 from lbm_tpu.models import RunConfig, run_simulation
 from lbm_tpu.tools.check import compare_series
@@ -70,30 +66,46 @@ def test_async_overshard_warns():
         )
 
 
-@requires_reference
-def test_resident_pallas_prefix_parity():
-    scene = _scene("128x128")
-    from lbm_tpu.ops import resident_pallas
+@pytest.mark.parametrize("storage", ["f32", "i16"])
+def test_committed_1024_scene_matches_golden_prefix(storage):
+    """The committed 1024^2 scene (golden/input_1024x1024.params and
+    obstacles_1024x1024.dat, recovered from the golden final state: the
+    obstacle column, density from the obstacle pressure, accel and omega
+    from the av_vels prefix) reproduces the first 50 golden av_vels.
 
-    run = jax.jit(
-        resident_pallas.make_run_all(
-            scene.params, scene.obstacles, PREFIX_STEPS, chunk=40, interpret=True
-        )
+    rtol 5e-5, not tighter: the golden series sums |u| over a million
+    cells in float32 on another backend (golden/README.md), and a
+    different summation order alone moves it by ~2e-5 relative (the NumPy
+    oracle sits 1.9e-5 from it at step 2); the nearest alternative
+    parameters (accel 0.005, or omega 1.7) miss by 50% and 20%.  i16
+    storage stays inside its quantization envelope."""
+    import pathlib
+
+    from lbm_tpu.io.writers import read_av_vels
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "golden"
+    scene = load_scene(
+        root / "input_1024x1024.params", root / "obstacles_1024x1024.dat"
     )
-    f0 = jnp.asarray(
-        lattice.equilibrium_rest(scene.params.density, scene.params.ny, scene.params.nx)
+    p = scene.params
+    assert (p.nx, p.ny, p.max_iters) == (1024, 1024, 20000)
+    assert (p.density, p.accel, p.omega) == (0.1, 0.01, 1.85)
+    assert int(scene.obstacles.sum()) == 5114
+    assert scene.obstacles[:, 341].all()
+    steps = 50
+    res = run_simulation(
+        scene, RunConfig(variant="jnp", num_steps=steps, storage=storage)
     )
-    _, tots = run(f0)
-    av = np.asarray(tots) / np.float32(scene.num_fluid_cells)
-    diff = compare_series(_golden_av("128x128", PREFIX_STEPS), av)
-    assert abs(diff.max_diff_pcnt) < 0.1, diff
+    gold = read_av_vels(root / "1024x1024.av_vels.dat.gz")[:steps]
+    rtol = 5e-5 if storage == "f32" else 1e-2
+    np.testing.assert_allclose(res.av_vels, gold, rtol=rtol)
 
 
 @requires_reference
 @pytest.mark.slow
 @pytest.mark.parametrize("grid", ["128x128", "128x256", "256x256"])
 def test_full_run_av_vels_parity(grid):
-    """Full-length golden comparison (slow; run with -m slow or on TPU)."""
+    """Full-length golden comparison (slow; run with -m slow or on a GPU)."""
     scene = _scene(grid)
     res = run_simulation(scene, RunConfig(variant="auto", num_devices=1))
     diff = compare_series(_golden_av(grid), res.av_vels)

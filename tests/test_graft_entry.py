@@ -1,8 +1,8 @@
 """Driver-contract tests for __graft_entry__ (entry + dryrun_multichip).
 
-Round-1 regression: dryrun_multichip must self-bootstrap a virtual CPU mesh
-when the host has fewer devices than requested (VERDICT.md item 1) instead
-of asserting on the device count.
+dryrun_multichip must re-run itself on a virtual CPU mesh, and say so,
+when the host has fewer devices than requested, instead of asserting on
+the device count.
 """
 
 import os
@@ -52,17 +52,15 @@ def test_dryrun_bootstraps_subprocess_when_devices_missing():
     )
     assert proc.returncode == 0, proc.stderr
     assert "BOOTSTRAP_OK" in proc.stdout
-    # 18 combos, each with an explicit correctness relation (VERDICT r2 #2):
-    # sync/overlap jnp bitwise, sync pallas, ca K=2 slab + K=4 under ALL
-    # THREE forced engines (round 4) exact, the forced 2-way split-parts
-    # in-place ca + its parts-carried whole-run hook (round 5),
-    # sync/overlap/ca i16 + the forced i16 in-place ca engine (round 5),
-    # async 1/3 + chunked inside the model-derived envelope, and the exact
-    # ghost-age reconstruction (round 5).
-    assert proc.stdout.count("dryrun ok:") == 18
-    assert proc.stdout.count("bitwise") >= 2
+    # The re-run on a virtual CPU mesh is announced, never silent.
+    assert "re-running on a virtual 4-device CPU mesh" in proc.stdout
+    # 12 relations, each with an explicit correctness check: sync/overlap
+    # bitwise, ca K=2/K=4 bitwise vs sync, sync-i16 in the quant envelope
+    # with overlap-i16 and ca-i16 bitwise vs it, async 1/3 + chunked
+    # inside the model-derived envelope, and the exact ghost-age
+    # reconstruction.
+    assert proc.stdout.count("dryrun ok:") == 12
+    assert proc.stdout.count("bitwise") >= 6
     assert "exact comm-avoiding" in proc.stdout
-    assert "parts=2 split sub-sweeps" in proc.stdout
-    assert "parts-carried whole-run hook" in proc.stdout
     assert "bounded staleness" in proc.stdout
     assert proc.stdout.count("ghost age exact") == 2

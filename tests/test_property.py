@@ -106,49 +106,41 @@ def test_sharded_sync_matches_single_on_random_scenes(seed, shards):
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_temporal_sweep_matches_jnp_on_random_scenes(seed):
-    """Fuzz the K-step temporal sweep against K jnp steps on random
-    lane-aligned geometries, depths, and parameters (incl. nb=1 single-block
-    shapes and K=3 odd depths)."""
-    from lbm_tpu.ops import temporal_pallas
+def test_block_kernel_matches_jnp_on_random_scenes(seed):
+    """Fuzz the Triton block kernel (Pallas interpreter) against the XLA
+    step on random geometries, widths that are no power of two, tiles that
+    do not divide the grid, and random parameters, over several steps."""
+    from lbm_tpu.ops import fused_pallas
 
     rng = np.random.default_rng(1000 + seed)
-    ny = int(rng.choice([16, 24, 32, 48]))
-    K = int(rng.choice([2, 3, 4]))
+    ny = int(rng.choice([9, 16, 24, 37]))
+    nx = int(rng.choice([12, 40, 100, 130]))
+    block = (int(rng.choice([4, 8, 16])), int(rng.choice([16, 32, 64])), 4)
     params = LBMParams(
-        nx=128, ny=ny, max_iters=2 * K + 1, reynolds_dim=10,
+        nx=nx, ny=ny, max_iters=5, reynolds_dim=10,
         density=float(rng.uniform(0.05, 0.3)),
         accel=float(rng.uniform(0.001, 0.01)),
         omega=float(rng.uniform(0.8, 1.9)),
     )
-    if not temporal_pallas.supports(params, K):
-        pytest.skip(f"grid {ny}x128 cannot map K={K}")
-    mask = rng.random((ny, 128)) < rng.uniform(0.0, 0.25)
-    mask[ny // 2, 64] = False
-    steps = params.max_iters  # odd: exercises the single-step remainder
+    mask = rng.random((ny, nx)) < rng.uniform(0.0, 0.25)
+    mask[ny // 2, nx // 2] = False
 
     obst = jnp.asarray(mask)
-    f = jnp.asarray(lattice.equilibrium_rest(params.density, ny, 128))
-    tots_ref = []
-    for _ in range(steps):
-        f, tu = fused_jnp.fused_step_single(f, obst, params)
-        tots_ref.append(float(tu))
-
-    run = temporal_pallas.make_run_all(params, mask, steps, K)
-    f0 = jnp.asarray(lattice.equilibrium_rest(params.density, ny, 128))
-    f_t, tots = run(f0)
-    np.testing.assert_allclose(np.asarray(f_t), np.asarray(f), atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(tots, np.float32), np.asarray(tots_ref, np.float32),
-        rtol=1e-4,
-    )
+    f = jnp.asarray(lattice.equilibrium_rest(params.density, ny, nx))
+    g = f
+    step = fused_pallas.make_step(params, mask, block=block, interpret=True)
+    for _ in range(params.max_iters):
+        f, tu_ref = fused_jnp.fused_step_single(f, obst, params)
+        g, tu = step(g)
+        np.testing.assert_allclose(float(tu), float(tu_ref), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(f), atol=1e-7)
 
 
 @pytest.mark.parametrize("seed", range(5))
 def test_ca_matches_sync_on_random_scenes(seed):
-    """Random lane-aligned geometry and parameters: the communication-
-    avoiding mode must track sync within interpret-mode ulps at a random
-    exchange depth (walls or open wrap seam decided by the draw)."""
+    """Random geometry and parameters: the communication-avoiding mode
+    must match sync bitwise at a random exchange depth (walls or open wrap
+    seam decided by the draw)."""
     import jax
 
     from lbm_tpu.parallel import mesh as mesh_lib
@@ -171,12 +163,7 @@ def test_ca_matches_sync_on_random_scenes(seed):
     mask[ny // 2, 64] = False
 
     mesh = mesh_lib.make_row_mesh(shards)
-    try:
-        ca = modes.build_sharded_program(
-            params, mask, mesh, mode="ca", staleness=K
-        )
-    except ValueError:
-        pytest.skip(f"{nloc}-row shards cannot map K={K}")
+    ca = modes.build_sharded_program(params, mask, mesh, mode="ca", staleness=K)
     sync = modes.build_sharded_program(params, mask, mesh, mode="sync")
 
     st_c, st_s = ca.init_state, sync.init_state
@@ -185,6 +172,6 @@ def test_ca_matches_sync_on_random_scenes(seed):
         st_c, _ = step_c(st_c)
         for _ in range(K):
             st_s, _ = step_s(st_s)
-    np.testing.assert_allclose(
-        np.asarray(ca.f_of(st_c)), np.asarray(sync.f_of(st_s)), atol=1e-6
+    np.testing.assert_array_equal(
+        np.asarray(ca.f_of(st_c)), np.asarray(sync.f_of(st_s))
     )

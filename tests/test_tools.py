@@ -17,6 +17,24 @@ def test_bench_report_schema(tmp_path, monkeypatch):
     # vs_baseline is rounded to 3 decimals and value to 1, so the two
     # roundings can disagree by up to one ulp of each.
     assert report["vs_baseline"] == pytest.approx(report["value"] / 1587.0, abs=1e-3)
+    assert report["device"] == {"platform": "cpu", "kind": "cpu", "count": 8}
+
+
+def test_bench_loads_the_committed_1024_scene():
+    """bench's 1024^2 cell is the committed reference scene (full-height
+    wall at x=341), not a synthesized closed box."""
+    scene = bench.load_or_make_scene("1024x1024")
+    assert (scene.params.accel, scene.params.omega) == (0.01, 1.85)
+    assert scene.obstacles[:, 341].all()
+
+
+def test_time_scan_times_each_repeat():
+    from lbm_tpu.parallel import modes
+
+    scene = bench.load_or_make_scene("32x32")
+    prog = modes.build_single_program(scene.params, scene.obstacles)
+    times = bench.time_scan(prog, 4, repeats=3)
+    assert len(times) == 3 and all(t > 0 for t in times)
 
 
 def test_bench_synthesized_scene():
@@ -191,3 +209,39 @@ def test_divergence_probe(tmp_path, small_params, small_obstacles):
     png = tmp_path / "divergence.png"
     divergence.write_plot(png, res)
     assert png.stat().st_size > 0
+
+
+@pytest.mark.parametrize("storage,min_bytes", [("f32", 73), ("i16", 37)])
+def test_steptrace_on_cpu_reports_no_device(storage, min_bytes):
+    """The trace reducer reads device planes only: on a CPU it says there
+    is none instead of reporting host threads as device time, and still
+    gives the least bytes a step moves for the storage."""
+    from lbm_tpu.parallel import modes
+    from lbm_tpu.params import LBMParams
+    from lbm_tpu.tools import steptrace
+
+    p = LBMParams(nx=32, ny=16, max_iters=4, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    mask = np.zeros((16, 32), dtype=bool)
+    mask[0, :] = mask[-1, :] = True
+    prog = modes.build_single_program(p, mask, storage=storage)
+    res = steptrace.trace_program(prog, 4)
+    assert res["device_planes"] == 0
+    assert res["min_bytes_per_cell_step"] == min_bytes
+    assert res["xla_bytes_per_cell_step"] > 0
+
+
+def test_stream_rate_counts_one_read_and_one_write_per_pass():
+    from lbm_tpu.tools import steptrace
+
+    res = steptrace.stream_rate((9, 8, 16), reps=2, repeats=1)
+    assert res["bytes_per_pass"] == 2 * 9 * 8 * 16 * 4
+    assert res["seconds_per_pass"] > 0 and res["gb_per_s"] > 0
+
+
+def test_steptrace_busy_time_is_the_interval_union():
+    from lbm_tpu.tools import steptrace
+
+    assert steptrace._union_ns([(0, 10), (5, 15), (20, 30)]) == 25
+    assert steptrace._union_ns([(0, 10), (2, 3)]) == 10
+    assert steptrace._union_ns([]) == 0
